@@ -1,0 +1,229 @@
+"""CTC loss with label priors through the hand-written CUDA kernels.
+
+Counterpart of ``stylish_tts_tpu/ops/ctc_pallas.py``. The kernels live in
+``stylish_tts_torch/csrc/ctc.cu`` (see the note there); they are built
+with ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/`` on first use
+and loaded with ctypes.
+
+Dispatch is by the device of the tensor: a CPU tensor takes the plain
+version (``ops/ctc.py``), a CUDA tensor launches the kernels or raises.
+There is no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from . import ctc as plain
+
+# Launch counts, one per kernel, bumped only where the kernel launches.
+LAUNCHES = {"alpha": 0, "beta_grad": 0}
+
+# S = 2U+1 states (1025 at collate.MAX_TEXT = 512); with C <= 1024 the
+# shared memory stays under the 48 KB a launch gets without opting in
+MAX_STATES = 1025
+MAX_CLASSES = 1024
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ctc.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_lib = None
+_lib_lock = threading.Lock()
+BUILD_LOG = ""  # nvcc's output (ptxas registers / shared memory / spills)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").is_file():
+            return str(Path(root, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: the CTC kernels need the CUDA toolkit")
+
+
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/ctc.cu`` (once per source digest) and load it."""
+    global _lib, BUILD_LOG
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+        path = BUILD_DIR / f"libctc_{digest}.so"
+        if not path.is_file():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                capture_output=True, text=True,
+            )
+            BUILD_LOG = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {SOURCE}:\n{BUILD_LOG}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(str(path))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ctc_alpha_fwd.argtypes = [p, p, p, p, i, i, i, i, i, p, p, i, p]
+        lib.ctc_alpha_fwd.restype = i
+        lib.ctc_beta_grad_bwd.argtypes = [
+            p, p, p, p, p, p, p, i, i, i, i, i, p, i, p,
+        ]
+        lib.ctc_beta_grad_bwd.restype = i
+        _lib = lib
+        return lib
+
+
+def _threads(s: int) -> int:
+    return min(1024, max(32, (s + 31) // 32 * 32))
+
+
+def _check_inputs(log_probs, input_lengths, labels, label_lengths, blank_id):
+    if log_probs.device.type != "cuda":
+        raise ValueError(f"CTC kernel needs a CUDA tensor, got {log_probs.device}")
+    if log_probs.dtype != torch.float32 or log_probs.dim() != 3:
+        raise ValueError(
+            f"log_probs must be float32 (B, T, C), got {log_probs.dtype} "
+            f"{tuple(log_probs.shape)}"
+        )
+    b, t, c = log_probs.shape
+    for name, x, shape in (
+        ("input_lengths", input_lengths, (b,)),
+        ("label_lengths", label_lengths, (b,)),
+        ("labels", labels, (b, labels.shape[-1])),
+    ):
+        if x.dtype != torch.int32 or tuple(x.shape) != shape:
+            raise ValueError(
+                f"{name} must be int32 of shape {shape}, got {x.dtype} "
+                f"{tuple(x.shape)}"
+            )
+        if x.device != log_probs.device or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous on {log_probs.device}")
+    if not log_probs.is_contiguous():
+        raise ValueError("log_probs must be contiguous")
+    s = 2 * labels.shape[1] + 1
+    if s > MAX_STATES or c > MAX_CLASSES or b == 0 or t == 0:
+        raise ValueError(
+            f"CTC kernel supports 1 <= B, 1 <= T, S = 2U+1 <= {MAX_STATES} "
+            f"and C <= {MAX_CLASSES}; got B={b}, T={t}, S={s}, C={c}"
+        )
+    if not 0 <= blank_id < c:
+        raise ValueError(f"blank_id {blank_id} outside [0, {c})")
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def ctc_alpha(log_probs, input_lengths, labels, label_lengths, blank_id):
+    """Forward kernel: (alpha (B, T, S), ll (B,)), both float64 (the
+    trellis runs in double, see csrc/ctc.cu). Rows t >= len of alpha are
+    left unwritten; nothing reads them."""
+    _check_inputs(log_probs, input_lengths, labels, label_lengths, blank_id)
+    lib = build()
+    b, t, c = log_probs.shape
+    u = labels.shape[1]
+    s = 2 * u + 1
+    alpha = torch.empty((b, t, s), dtype=torch.float64, device=log_probs.device)
+    ll = torch.empty((b,), dtype=torch.float64, device=log_probs.device)
+    err = lib.ctc_alpha_fwd(
+        log_probs.data_ptr(), labels.data_ptr(), input_lengths.data_ptr(),
+        label_lengths.data_ptr(), b, t, c, u, blank_id, alpha.data_ptr(),
+        ll.data_ptr(), _threads(s), _stream(),
+    )
+    if err != 0:
+        raise RuntimeError(f"ctc_alpha_fwd launch failed: cudaError {err}")
+    LAUNCHES["alpha"] += 1
+    return alpha, ll
+
+
+def ctc_beta_grad(log_probs, input_lengths, labels, label_lengths, blank_id,
+                  alpha, ll, g):
+    """Backward kernel: d(-ll)/d log_probs * g, (B, T, C)."""
+    _check_inputs(log_probs, input_lengths, labels, label_lengths, blank_id)
+    lib = build()
+    b, t, c = log_probs.shape
+    u = labels.shape[1]
+    g = g.to(torch.float32).contiguous()
+    if (tuple(alpha.shape) != (b, t, 2 * u + 1) or tuple(g.shape) != (b,)
+            or alpha.dtype != torch.float64 or ll.dtype != torch.float64):
+        raise ValueError("alpha / ll / g do not match log_probs")
+    grad = torch.empty_like(log_probs)
+    err = lib.ctc_beta_grad_bwd(
+        log_probs.data_ptr(), labels.data_ptr(), input_lengths.data_ptr(),
+        label_lengths.data_ptr(), alpha.data_ptr(), ll.data_ptr(),
+        g.data_ptr(), b, t, c, u, blank_id, grad.data_ptr(),
+        _threads(2 * u + 1), _stream(),
+    )
+    if err != 0:
+        raise RuntimeError(f"ctc_beta_grad_bwd launch failed: cudaError {err}")
+    LAUNCHES["beta_grad"] += 1
+    return grad
+
+
+class _CTCNLL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, log_probs, input_lengths, labels, label_lengths, blank_id):
+        alpha, ll = ctc_alpha(
+            log_probs, input_lengths, labels, label_lengths, blank_id
+        )
+        ctx.save_for_backward(
+            log_probs, input_lengths, labels, label_lengths, alpha, ll
+        )
+        ctx.blank_id = blank_id
+        return (-ll).to(torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        log_probs, input_lengths, labels, label_lengths, alpha, ll = (
+            ctx.saved_tensors
+        )
+        grad = ctc_beta_grad(
+            log_probs, input_lengths, labels, label_lengths, ctx.blank_id,
+            alpha, ll, g,
+        )
+        return grad, None, None, None, None
+
+
+def ctc_nll_cuda(log_probs, input_lengths, labels, label_lengths, blank_id):
+    """Per-sequence CTC negative log-likelihood (B,): the kernels for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    if log_probs.device.type == "cpu":
+        return plain.ctc_nll(
+            log_probs, input_lengths, labels, label_lengths, blank_id
+        )
+    return _CTCNLL.apply(
+        log_probs, input_lengths, labels, label_lengths, blank_id
+    )
+
+
+def ctc_loss_with_priors_cuda(
+    log_probs: torch.Tensor,
+    input_lengths: torch.Tensor,
+    labels: torch.Tensor,
+    label_lengths: torch.Tensor,
+    blank_id: int,
+    log_priors: Optional[torch.Tensor] = None,
+    prior_scale: float = 0.0,
+    reduction: str = "mean",
+) -> torch.Tensor:
+    """Drop-in for ``ops.ctc.ctc_loss_with_priors`` (the prior shift and the
+    reduction stay in PyTorch, as ``ctc_pallas.py`` keeps them in JAX)."""
+    if log_priors is not None and prior_scale > 0.0:
+        log_probs = log_probs - prior_scale * log_priors[None, None, :]
+    loss = ctc_nll_cuda(
+        log_probs, input_lengths, labels, label_lengths, blank_id
+    )
+    return plain.reduce_loss(loss, label_lengths, reduction)
