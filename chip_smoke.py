@@ -20,21 +20,30 @@ Phases (any failure exits non-zero):
    ``chiprun_out/profile_align_step.json``);
 3. hold both kernels against the plain PyTorch CTC on the card: the loss
    and the gradient w.r.t. the logits through log_softmax, with priors, at
-   small ragged cases (label lengths 0, 1, U, repeats, input_len < T), at
-   B=32/T=400/U=120, at U=512 (S=1025) and at the main path's shape;
+   small ragged cases (label lengths 0, 1, U, repeats, input_len < T, final
+   states across a warp boundary, a row that no alignment fits), at
+   B=32/T=400/U=120, at U=512 (S=1025) and at the main path's shape; at
+   the ragged cases also alpha and beta against the plain
+   ``ctc_alphas_betas``, and a forward under ``torch.no_grad()`` that
+   walks alpha alone and gives the same loss;
 4. time kernels, plain version and ``F.ctc_loss`` (the library yardstick,
    never used by the port), each as the median of 25 runs after warm-up,
    at the main path's shape, at B=32/T=400/U=120 and at U=512; and the
-   kernels on one sequence alone (B=1, same T and longest label), the
-   floor of the dependent T-step chain that every CTA walks;
+   forward kernel on one sequence alone (B=1, same T and longest label),
+   the T-step chain that every CTA walks; the per-frame time of the
+   one-sequence runs, fitted over S;
 5. print the ``kernels`` JSON line, then the device line last.
 
-Tolerances: the kernels run the trellis in double (see csrc/ctc.cu), so
-they are held against the plain version evaluated in float64 on the same
-float32 inputs: loss rtol 1e-5, gradient atol 1e-5 (shared atomics change
-the order of the class sums). The error against the plain float32 run is
-printed beside it; that version carries its own float32 error (1.5e-4 in
-the gradient at T = 400).
+Tolerances: the kernels carry the trellis as float-float pairs and
+normalise gamma per frame (see csrc/ctc.cu), so they are held against the
+plain version evaluated in float64 on the same float32 inputs: loss rtol
+1e-5, gradient atol 1e-5 (shared atomics change the order of the class
+sums); alpha and beta rtol 1e-6, atol 1e-4 on the reachable live states.
+The error against the plain float32 run is printed beside it; that
+version carries its own float32 error (1.5e-4 in the gradient at T = 400).
+
+Times are device times: each timed call is queued behind a sleep kernel
+on the card, so that the host's launch work does not count.
 """
 
 from __future__ import annotations
@@ -53,11 +62,16 @@ OUT = ROOT / "chiprun_out"
 # published H100 SXM rates (dense, outside the tensor cores, at 700 W)
 H100_HBM_BYTES_PER_S = 3.35e12
 H100_FP32_OPS_PER_S = 67e12
-H100_FP64_OPS_PER_S = 34e12
-# operations per live state-frame: the forward LSE of three terms is
-# 3 exp + 1 log + ~10 add/max; the backward does the same for beta, then
-# gamma's exp, two adds and the class-bin add
-OPS_PER_STATE_FRAME = {"alpha": 14, "beta_grad": 18}
+# operations per live state-frame of the function: the forward LSE of
+# three terms is 3 exp + 1 log + ~10 add/max; the gradient does the same
+# for beta, then gamma's exp, two adds and the class-bin add. As the
+# kernels do it, the forward walks both (28) and the gradient pass only
+# forms gamma (adds alpha and beta, the frame's normaliser, gamma's exp,
+# the class-bin add: 8)
+OPS_PER_STATE_FRAME = {"alpha_beta": 14, "grad": 18}
+DESIGN_OPS_PER_STATE_FRAME = {"alpha_beta": 28, "grad": 8}
+TRELLIS_RTOL = 1e-6
+TRELLIS_ATOL = 1e-4
 PRIOR_SCALE = 0.3
 N_TIMED = 25
 
@@ -187,8 +201,8 @@ def phase_main_path(torch, work: Path):
     if config.training_plan.alignment.probe_batch_max != 128:
         fail("default alignment probe_batch_max is not 128")
 
-    ctc_cuda.LAUNCHES["alpha"] = 0
-    ctc_cuda.LAUNCHES["beta_grad"] = 0
+    for name in ctc_cuda.LAUNCHES:
+        ctc_cuda.LAUNCHES[name] = 0
     t0 = time.time()
     trainer = Trainer(config, mc, str(work / "out"), device="cuda")
     state = trainer.train("alignment")
@@ -203,7 +217,7 @@ def phase_main_path(torch, work: Path):
         fail(f"main path ran {steps} steps (< 5)")
     if len(losses) != steps or not all(np.isfinite(losses)):
         fail(f"losses not all finite or missing: {losses}")
-    if launches["alpha"] != steps or launches["beta_grad"] != steps:
+    if any(n != steps for n in launches.values()):
         fail(f"launch counts {launches} != step count {steps}")
     priors = state.log_priors.cpu().numpy()
     if not np.isfinite(priors).all() or not (priors != 0).any():
@@ -239,7 +253,7 @@ def phase_main_path(torch, work: Path):
 
 # kernel-name patterns of the step's device-time breakdown, first match wins
 KERNEL_GROUPS = (
-    ("CTC kernels", ("ctc_alpha", "ctc_beta")),
+    ("CTC kernels", ("ctc_alpha_beta", "ctc_grad")),
     ("fp32 GEMMs and convs", ("gemm", "cutlass", "conv", "implicit", "winograd",
                               "xmma", "cudnn", "fft")),
     ("GroupNorm", ("GroupNorm", "RowwiseMoments", "ComputeInternalGradients")),
@@ -273,7 +287,8 @@ def phase_step_time(torch, trainer, state, batch, n=10):
     with torch.no_grad():
         frames = ctx.norm_mel(batch.audio_gt[:1], ctx.to_align_mel).shape[-1]
     shape = (batch.text.shape[0], frames, ctx.blank_id + 1, batch.text.shape[1])
-    step_ms = median_ms(torch, lambda: step(state, batch), n=n, warmup=2)
+    step_ms = median_ms(torch, lambda: step(state, batch), n=n, warmup=2,
+                        sleep=False)
 
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -382,9 +397,12 @@ def phase_check(torch, main_shape):
     gen = torch.Generator().manual_seed(7)
     main_ll = torch.randint(max(u_m - 30, 1), u_m + 1, (b_m,), generator=gen)
     cases = {
+        # label lengths 15 and 16 put the final states across a warp
+        # boundary; the last row, a repeated label in 8 frames (it needs 11),
+        # is one that no alignment fits
         "ragged_small": dict(
-            b=5, t=50, c=179, u=20, label_lengths=[0, 1, 20, 7, 12],
-            input_lengths=[50, 37, 50, 20, 45], repeat_rows=(3,)),
+            b=8, t=50, c=179, u=20, label_lengths=[0, 1, 20, 7, 12, 15, 16, 6],
+            input_lengths=[50, 37, 50, 20, 45, 50, 50, 8], repeat_rows=(3, 7)),
         "b32_t400_u120": dict(
             b=32, t=400, c=179, u=120,
             label_lengths=torch.randint(90, 121, (32,), generator=gen).tolist(),
@@ -424,13 +442,72 @@ def phase_check(torch, main_shape):
             fail(f"kernel disagrees with the plain version on {name}: "
                  f"loss rel {loss_rel:.3e} (rtol {LOSS_RTOL}), grad "
                  f"{grad_err:.3e} (atol {GRAD_ATOL})")
+        if name == "ragged_small":
+            results["trellis_" + name] = check_trellis(torch, case)
     return results
+
+
+def case_log_probs(torch, case):
+    lp = (torch.log_softmax(case["logits"], -1)
+          - PRIOR_SCALE * case["priors"][None, None, :]).contiguous()
+    args = (case["input_lengths"], case["labels"], case["label_lengths"],
+            case["blank"])
+    return lp, args
+
+
+def check_trellis(torch, case):
+    """alpha, beta and ll of the forward kernel against the plain
+    ``ctc_alphas_betas`` in float64 on the live
+    states (reachable ones within tolerance, unreachable ones below NEG/10
+    on both sides); then a forward under ``torch.no_grad()``, which must
+    launch the forward kernel once (alpha alone) and give the same loss as
+    the forward that stores alpha and beta."""
+    from stylish_tts_torch.ops import ctc as plain
+    from stylish_tts_torch.ops import ctc_cuda
+
+    lp, args = case_log_probs(torch, case)
+    p_alpha, p_beta, p_ll = plain.ctc_alphas_betas(lp.double(), *args)
+    alpha, beta, offsets, k_ll = ctc_cuda.ctc_alpha_beta(lp, *args)
+    trellis = ctc_cuda.trellis(alpha, beta, offsets, args[0], args[2])
+    out = {"ll_max_rel_err": float(((k_ll - p_ll).abs() / p_ll.abs()).max())}
+    for name, ours, ref in zip(("alpha", "beta"), trellis, (p_alpha, p_beta)):
+        live = ~torch.isnan(ours)
+        reach = live & (ref > plain.NEG / 10)
+        err = (ours - ref).abs()[reach]
+        excess = float((err - TRELLIS_ATOL - TRELLIS_RTOL * ref.abs()[reach]).max())
+        out[name + "_max_abs_err"] = float(err.max())
+        if excess > 0 or not bool((ours[live & ~reach] <= plain.NEG / 10).all()):
+            fail(f"{name} of the forward kernel disagrees with the plain trellis: "
+                 f"max abs err {float(err.max()):.3e} (rtol {TRELLIS_RTOL}, "
+                 f"atol {TRELLIS_ATOL})")
+    if out["ll_max_rel_err"] > LOSS_RTOL:
+        fail(f"ll of the forward kernel: rel err {out['ll_max_rel_err']:.3e}")
+    log(f"check trellis: ll rel {out['ll_max_rel_err']:.2e}, alpha "
+        f"{out['alpha_max_abs_err']:.2e}, beta {out['beta_max_abs_err']:.2e}")
+
+    with_grad = ctc_cuda.ctc_nll_cuda(lp.clone().requires_grad_(True), *args)
+    before = dict(ctc_cuda.LAUNCHES)
+    with torch.no_grad():
+        no_grad = ctc_cuda.ctc_nll_cuda(lp, *args)
+    launched = {n: ctc_cuda.LAUNCHES[n] - before[n] for n in before}
+    if launched != {"alpha_beta": 1, "grad": 0}:
+        fail(f"the no-grad forward launched {launched}, not the forward kernel once")
+    if not torch.equal(no_grad, with_grad.detach()):
+        fail("the no-grad forward's loss differs from the forward that stores")
+    out["no_grad_launches"] = launched
+    log(f"check no-grad forward: launches {launched}, same loss")
+    return out
 
 
 # ---------------------------------------------------------------- phase 4
 
+SLEEP_CYCLES = 2_000_000  # ~1 ms of the card's clock ahead of each timed call
 
-def median_ms(torch, fn, n=N_TIMED, warmup=3):
+
+def median_ms(torch, fn, n=N_TIMED, warmup=3, sleep=True):
+    """Median time of ``fn`` between CUDA events. With ``sleep``, a sleep
+    kernel queued ahead of the start event keeps the card busy while the
+    host launches, so the time is the device's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -438,6 +515,8 @@ def median_ms(torch, fn, n=N_TIMED, warmup=3):
     for _ in range(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if sleep:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         end.record()
@@ -450,45 +529,46 @@ def bounds(b, t, c, u, label_lengths, input_lengths):
     """Least time of each kernel's function at this run's lengths: each
     input read once and each output written once at the function's
     float32 width, over the HBM rate, against the operations over the
-    float32 rate; the larger binds. alpha, the one tensor that passes from
-    the forward to the backward, counts at 4 B for each live state-frame
-    (sequence b has 2 L_b + 1 states for len_b frames). ``design_*``
-    prices the work as the kernels do it: alpha stored for all S = 2U+1
-    states of each live frame and, with ll, at 8 B, the operations at the
-    FP64 rate; the difference is the cost of the double trellis."""
+    float32 rate; the larger binds. The function is the forward (ll, and
+    alpha for the backward) and the backward (the gradient from alpha, ll
+    and the log-probs): alpha, the one tensor that must pass from one to
+    the other, counts at 4 B for each live state-frame (sequence b has
+    2 L_b + 1 states for len_b frames), once each way. ``design_*`` prices
+    the work as these kernels do it: both CTAs of a sequence read its live
+    log_prob rows and the forward writes beta too, with a float64 offset
+    per (b, direction, t); the gradient pass reads alpha, beta and ll but
+    not the log-probs, and walks no recursion."""
     frames = [min(n, t) for n in input_lengths]
     state_frames = sum(f * (2 * lab + 1) for f, lab in zip(frames, label_lengths))
-    stored = sum(frames) * (2 * u + 1) * 8 + b * 8  # alpha and ll as stored
-    lp = b * t * c * 4
+    lp = b * t * c * 4  # log_probs in, or the gradient out
+    lp_live = sum(frames) * c * 4
     small = b * u * 4 + 2 * b * 4  # labels, input and label lengths
+    alpha = state_frames * 4
+    fn_bytes = {"alpha_beta": lp + small + alpha + b * 4,  # alpha and ll out
+                "grad": lp + small + alpha + b * 4 + b * 4 + lp}  # g in, grad out
+    design_bytes = {
+        # both CTAs read the live rows; alpha, beta, the offsets and ll out
+        "alpha_beta": 2 * lp_live + small + 2 * alpha + 2 * b * t * 8 + b * 8,
+        "grad": small + 2 * alpha + b * 8 + b * 4 + lp}  # ll and g in
     out = {}
-    for name, extra in (("alpha", 0), ("beta_grad", b * 4 + lp)):
-        # alpha writes alpha and ll; beta_grad reads them with g, writes grad
+    for name, nbytes in fn_bytes.items():
         ops = OPS_PER_STATE_FRAME[name] * state_frames
-        nbytes = lp + small + state_frames * 4 + b * 4 + extra
-        design = lp + small + stored + extra
+        design_ops = DESIGN_OPS_PER_STATE_FRAME[name] * state_frames
         t_bytes = nbytes / H100_HBM_BYTES_PER_S * 1e3
         t_ops = ops / H100_FP32_OPS_PER_S * 1e3
-        design_ms = max(design / H100_HBM_BYTES_PER_S, ops / H100_FP64_OPS_PER_S) * 1e3
         out[name] = {"bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "bytes": nbytes, "ops": ops, "design_bytes": design,
-                     "design_bound_ms": design_ms}
+                     "bytes": nbytes, "ops": ops, "design_bytes": design_bytes[name],
+                     "design_bound_ms": max(design_bytes[name] / H100_HBM_BYTES_PER_S,
+                                            design_ops / H100_FP32_OPS_PER_S) * 1e3}
     return out
-
-
-def time_kernels(torch, lp, args, g):
-    from stylish_tts_torch.ops import ctc_cuda
-
-    alpha, ll = ctc_cuda.ctc_alpha(lp, *args)
-    return (median_ms(torch, lambda: ctc_cuda.ctc_alpha(lp, *args)),
-            median_ms(torch, lambda: ctc_cuda.ctc_beta_grad(lp, *args, alpha, ll, g)))
 
 
 def phase_time(torch, shape, seed, label_lengths=None, input_lengths=None):
     import torch.nn.functional as F
 
     from stylish_tts_torch.ops import ctc as plain
+    from stylish_tts_torch.ops import ctc_cuda
 
     b, t, c, u = shape
     gen = torch.Generator().manual_seed(seed)
@@ -497,18 +577,21 @@ def phase_time(torch, shape, seed, label_lengths=None, input_lengths=None):
     if input_lengths is None:
         input_lengths = [t] * b
     case = make_case(torch, b, t, c, u, label_lengths, input_lengths, seed)
-    lp = (torch.log_softmax(case["logits"], -1)
-          - PRIOR_SCALE * case["priors"][None, None, :]).contiguous()
-    args = (case["input_lengths"], case["labels"], case["label_lengths"],
-            case["blank"])
+    lp, args = case_log_probs(torch, case)
     g = case["weights"]
 
-    k_fwd, k_bwd = time_kernels(torch, lp, args, g)
-    # one sequence alone: the longest label over all T frames
+    # the forward on the batch and on one sequence alone (the longest label
+    # over all T frames)
     one = max(range(b), key=lambda i: label_lengths[i])
     one_args = (torch.full_like(args[0][:1], t), args[1][one:one + 1].contiguous(),
                 args[2][one:one + 1].contiguous(), args[3])
-    one_fwd, one_bwd = time_kernels(torch, lp[one:one + 1].contiguous(), one_args, g[:1])
+    lp_one = lp[one:one + 1].contiguous()
+    k_fwd = median_ms(torch, lambda: ctc_cuda.ctc_alpha_beta(lp, *args))
+    one_fwd = median_ms(torch, lambda: ctc_cuda.ctc_alpha_beta(lp_one, *one_args))
+    alpha_only = median_ms(
+        torch, lambda: ctc_cuda.ctc_alpha_beta(lp, *args, store=False))
+    alpha, beta, _, ll = ctc_cuda.ctc_alpha_beta(lp, *args)
+    k_bwd = median_ms(torch, lambda: ctc_cuda.ctc_grad(alpha, beta, ll, *args, c, g))
 
     x = lp.clone().requires_grad_(True)
     p_fwd = median_ms(torch, lambda: plain.ctc_nll(x, *args), warmup=1)
@@ -530,14 +613,30 @@ def phase_time(torch, shape, seed, label_lengths=None, input_lengths=None):
     bd = bounds(b, t, c, u, label_lengths, input_lengths)
     return {
         "shape": [b, t, c, u],
-        "alpha": {"ms": k_fwd, "plain_ms": p_fwd, "library_ms": l_fwd,
-                  "one_sequence_ms": one_fwd, **bd["alpha"]},
-        "beta_grad": {"ms": k_bwd, "plain_ms": p_bwd, "library_ms": l_bwd,
-                      "one_sequence_ms": one_bwd, **bd["beta_grad"]},
+        "alpha_beta": {"ms": k_fwd, "plain_ms": p_fwd, "library_ms": l_fwd,
+                       "alpha_only_ms": alpha_only, "one_sequence_ms": one_fwd,
+                       "one_sequence_states": 2 * label_lengths[one] + 1,
+                       "one_sequence_us_per_frame": one_fwd * 1e3 / t,
+                       **bd["alpha_beta"]},
+        "grad": {"ms": k_bwd, "plain_ms": p_bwd, "library_ms": l_bwd, **bd["grad"]},
         "kernels_fwd_bwd_ms": k_fwd + k_bwd,
         "plain_fwd_bwd_ms": p_fwd + p_bwd,
         "library_fwd_bwd_ms": l_fwd + l_bwd,
     }
+
+
+def frame_fit(timings):
+    """Least-squares line through the one-sequence forward's time per
+    frame against its live states: (fixed us per frame, ns per state)."""
+    import numpy as np
+
+    n = np.array([tm["alpha_beta"]["one_sequence_states"] for tm in timings.values()],
+                 dtype=np.float64)
+    us = np.array([tm["alpha_beta"]["one_sequence_us_per_frame"]
+                   for tm in timings.values()])
+    slope, fixed = np.polyfit(n, us, 1)
+    return {"fixed_us_per_frame": float(fixed), "ns_per_state": float(slope) * 1e3,
+            "points": [[float(a), float(b)] for a, b in zip(n, us)]}
 
 
 # ---------------------------------------------------------------- main
@@ -568,36 +667,36 @@ def main() -> int:
                                  input_lengths=[1100, 1000, 900, 1100]),
     }
     for name, tm in timings.items():
-        a, bg = tm["alpha"], tm["beta_grad"]
-        log(f"time {name} {tm['shape']}: kernels {a['ms']:.3f} / {bg['ms']:.3f} ms "
-            f"(one sequence {a['one_sequence_ms']:.3f} / {bg['one_sequence_ms']:.3f}; "
-            f"bound {a['bound_ms']:.4f} / {bg['bound_ms']:.4f}, double design "
-            f"{a['design_bound_ms']:.4f} / {bg['design_bound_ms']:.4f}), plain "
-            f"{a['plain_ms']:.3f} / {bg['plain_ms']:.3f} ms, F.ctc_loss "
-            f"{a['library_ms']:.3f} / {bg['library_ms']:.3f} ms")
+        a, gr = tm["alpha_beta"], tm["grad"]
+        log(f"time {name} {tm['shape']}: kernels {a['ms']:.4f} / {gr['ms']:.4f} ms "
+            f"(alpha alone {a['alpha_only_ms']:.4f}; bound {a['bound_ms']:.4f} / "
+            f"{gr['bound_ms']:.4f}, design {a['design_bound_ms']:.4f} / "
+            f"{gr['design_bound_ms']:.4f}), plain {a['plain_ms']:.3f} / "
+            f"{gr['plain_ms']:.3f} ms, F.ctc_loss {a['library_ms']:.4f} / "
+            f"{gr['library_ms']:.4f} ms; forward on one sequence "
+            f"{a['one_sequence_ms']:.4f} ms ({a['one_sequence_us_per_frame']:.4f} "
+            f"us per frame at {a['one_sequence_states']} states)")
+    fit = frame_fit(timings)
+    log(f"one-sequence forward per frame: {fit['fixed_us_per_frame']:.4f} us fixed "
+        f"+ {fit['ns_per_state']:.4f} ns per state (points {fit['points']})")
 
     src = "stylish_tts_torch/csrc/ctc.cu"
     tm = timings["main_path"]
-    kernels = [
-        {"name": "ctc_alpha_fwd", "route": "cuda", "source": src,
-         "replaces": "stylish_tts_tpu/ops/ctc_pallas.py:207",
-         "launches": launches["alpha"],
-         "max_abs_err": checks["main_path"]["loss_max_abs_err"],
-         "ms": tm["alpha"]["ms"], "plain_ms": tm["alpha"]["plain_ms"],
-         "bound_ms": tm["alpha"]["bound_ms"], "bound_by": tm["alpha"]["bound_by"],
-         "library_ms": tm["alpha"]["library_ms"]},
-        {"name": "ctc_beta_grad_bwd", "route": "cuda", "source": src,
-         "replaces": "stylish_tts_tpu/ops/ctc_pallas.py:237",
-         "launches": launches["beta_grad"],
-         "max_abs_err": checks["main_path"]["grad_max_abs_err"],
-         "ms": tm["beta_grad"]["ms"], "plain_ms": tm["beta_grad"]["plain_ms"],
-         "bound_ms": tm["beta_grad"]["bound_ms"],
-         "bound_by": tm["beta_grad"]["bound_by"],
-         "library_ms": tm["beta_grad"]["library_ms"]},
-    ]
+    kernels = []
+    for name, key, replaces, err in (
+            ("ctc_alpha_beta_fwd", "alpha_beta",
+             "stylish_tts_tpu/ops/ctc_pallas.py:207+237", "loss_max_abs_err"),
+            ("ctc_grad_bwd", "grad", "stylish_tts_tpu/ops/ctc_pallas.py:295",
+             "grad_max_abs_err")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[key], "max_abs_err": checks["main_path"][err],
+            "ms": tm[key]["ms"], "plain_ms": tm[key]["plain_ms"],
+            "bound_ms": tm[key]["bound_ms"], "bound_by": tm[key]["bound_by"],
+            "library_ms": tm[key]["library_ms"]})
     report = {"card": card, "main_path": {**main_run, "shape": main_shape},
               "step_ms": step_ms, "step_profile": profile, "checks": checks,
-              "timings": timings, "kernels": kernels,
+              "timings": timings, "frame_fit": fit, "kernels": kernels,
               "wall_s": time.time() - t_start}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
