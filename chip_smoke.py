@@ -32,7 +32,23 @@ Phases (any failure exits non-zero):
    forward kernel on one sequence alone (B=1, same T and longest label),
    the T-step chain that every CTA walks; the per-frame time of the
    one-sequence runs, fitted over S;
-5. print the ``kernels`` JSON line, then the device line last.
+5. synthesis at the full default ``ModelConfig()`` on ``cuda``: a package
+   of seeded random weights written by the port's ``export_checkpoint`` in
+   the JAX layout (the F0 head's bias set to 150 Hz, so the sine source
+   runs its harmonics), a static voicepack of seeded styles, eight phoneme
+   lines, one per text bucket up to 512; ``speak`` through the port's CLI,
+   the wav checked against the package's per-line synthesis (lengths total
+   x hop, finite, in [-1, 1], -25 +- 0.5 LUFS per piece of 1 s or more);
+   the same package on the CPU against the card on the 60-token line
+   (durations 1e-4, same frame bucket; waveform within 1e-3 of the CPU
+   waveform's peak, with one injected prior drawn on the CPU; the
+   deterministic sine source at a tolerance that scales with its largest
+   phase; the DC phase of a negative frame +pi on both); the duration and acoustic phases timed apart per text
+   bucket, RTF at B=1, ``generate_speech_batch`` at B=8; one acoustic call
+   at the longest line traced with ``torch.profiler`` (device time by
+   kernel group, launches, busy share, ``chiprun_out/profile_speak.json``);
+6. print the synthesis summary line, the ``kernels`` JSON line, then the
+   device line last.
 
 Tolerances: the kernels carry the trellis as float-float pairs and
 normalise gamma per frame (see csrc/ctc.cu), so they are held against the
@@ -42,8 +58,10 @@ sums); alpha and beta rtol 1e-6, atol 1e-4 on the reachable live states.
 The error against the plain float32 run is printed beside it; that
 version carries its own float32 error (1.5e-4 in the gradient at T = 400).
 
-Times are device times: each timed call is queued behind a sleep kernel
-on the card, so that the host's launch work does not count.
+Kernel times are device times: each timed call is queued behind a sleep
+kernel on the card, so that the host's launch work does not count. The
+synthesis phases are timed without it (CUDA events around the call, host
+launches included), since they are host-bound.
 """
 
 from __future__ import annotations
@@ -639,6 +657,396 @@ def frame_fit(timings):
             "points": [[float(a), float(b)] for a, b in zip(n, us)]}
 
 
+# ---------------------------------------------------------------- phase 5
+
+# token counts of the speak lines (the two pad symbols included): one in
+# each text bucket up to 512
+SPEAK_TOKENS = (30, 60, 90, 120, 180, 250, 380, 510)
+BATCH_TOKENS = (96, 100, 104, 108, 112, 116, 120, 124)  # B=8, text bucket 128
+SHORT_LINE = 1  # the 60-token line: the card against the CPU
+F0_BIAS_HZ = 150.0
+# the waveform on the card against the CPU, relative to the CPU waveform's
+# peak (random weights, no loudness normalisation on this path: the scale
+# is the run's own); 1e-3 of the peak is 60 dB below it
+WAVE_RTOL = 1e-3
+DURATION_ATOL = 1e-4
+LUFS_TARGET, LUFS_TOL, LUFS_MIN_SECONDS = -25.0, 0.5, 1.0
+N_PHASE_TIMED = 5
+
+# kernel groups of the acoustic call's device time; kernels launched under
+# the DSP ranges (patched in for the trace) count as DFT/iSTFT first
+SPEAK_GROUPS = (
+    ("copies and fills", ("Memcpy", "Memset", "CatArrayBatchedCopy", "copy_kernel")),
+    ("convs", ("conv", "implicit", "winograd", "fprop", "dgrad", "Conv")),
+    ("GEMMs", ("gemm", "Gemm", "cutlass", "xmma", "splitK", "cublas")),
+)
+
+
+def speak_group(name: str, in_dsp: bool) -> str:
+    if in_dsp:
+        return "DFT/iSTFT (framed-DFT matmuls, overlap-add, atan2/magnitude)"
+    for group, needles in SPEAK_GROUPS:
+        if any(n in name for n in needles):
+            return group
+    return "elementwise and norms"
+
+
+def speak_lines(seed: int, counts):
+    """Phoneme strings of ``count - 2`` symbols (the tokenizer adds two pads)."""
+    import numpy as np
+
+    from stylish_tts_torch.config import SymbolConfig
+
+    rng = np.random.default_rng(seed)
+    letters = list(SymbolConfig().letters_ipa)
+    table = letters + [" "] * 8
+    lines = []
+    for n in counts:
+        chars = rng.choice(table, size=n - 2)
+        chars[0], chars[-1] = rng.choice(letters, size=2)  # speak strips each line
+        lines.append("".join(chars))
+    return lines
+
+
+def write_speak_inputs(torch, root: Path):
+    """A full-width package of seeded random weights, written by the port's
+    export in the JAX layout; a static voicepack of seeded style vectors;
+    the lines."""
+    import numpy as np
+
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.export.package import export_checkpoint
+    from stylish_tts_torch.models import build_inference_models
+    from stylish_tts_torch.trainer.normalization import NormalizationStats
+    from stylish_tts_torch.tts.voicepack import build_static_pack, save_static_voicepack
+
+    torch.manual_seed(0)
+    mc = ModelConfig()
+    models = build_inference_models(mc)
+    with torch.no_grad():
+        # a voice's F0 (~150 Hz) out of the random pitch head, so that the
+        # sine source runs its harmonics, as it does for a trained voice
+        models["pitch_energy_predictor"].f0_proj.bias.fill_(F0_BIAS_HZ)
+    n_params = {k: sum(p.numel() for p in m.parameters()) for k, m in models.items()}
+    export_checkpoint(models, mc, NormalizationStats(), str(root / "pkg"))
+    rng = np.random.default_rng(1)
+    styles = {k: (0.5 * rng.standard_normal((400, mc.style_dim))).astype(np.float32)
+              for k in ("speech", "pe", "duration")}
+    styles["lengths"] = rng.integers(5, 512, 400).astype(np.int32)
+    save_static_voicepack(str(root / "voicepack.safetensors"), build_static_pack(styles))
+    lines = speak_lines(2, SPEAK_TOKENS)
+    (root / "lines.txt").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    return lines, n_params
+
+
+def phase_speak(torch, root: Path):
+    """``speak`` through the port's CLI on ``cuda``; then the wav against
+    the package's own per-line synthesis: same lengths (total x hop), in
+    [-1, 1], finite, each piece at -25 LUFS."""
+    import numpy as np
+
+    from stylish_tts_torch.cli import tts_cli
+    from stylish_tts_torch.data.wav import read_wav
+    from stylish_tts_torch.export.package import InferencePackage
+    from stylish_tts_torch.tts.loudness import integrated_loudness
+    from stylish_tts_torch.tts.voicepack import load_voicepack, lookup_static_style
+
+    lines, n_params = write_speak_inputs(torch, root)
+    wav_path = root / "speech.wav"
+    t0 = time.time()
+    tts_cli.main(["speak", "--model", str(root / "pkg"),
+                  "--voicepack", str(root / "voicepack.safetensors"),
+                  "--text", str(root / "lines.txt"), "--out", str(wav_path),
+                  "--device", "cuda"], standalone_mode=False)
+    torch.cuda.synchronize()
+    speak_s = time.time() - t0
+    pkg = InferencePackage(str(root / "pkg"), device="cuda")
+    mc = pkg.mc
+    wav = read_wav(str(wav_path), mc.sample_rate)
+    if not np.isfinite(wav).all() or np.abs(wav).max() > 1.0:
+        fail("speak wrote a wav that is not finite or leaves [-1, 1]")
+    pack = load_voicepack(str(root / "voicepack.safetensors"))
+    pieces, start = [], 0
+    for line in lines:
+        tokens = pkg.tokenize(line)
+        audio = pkg.generate_speech(tokens, *lookup_static_style(pack, tokens.shape[0]))
+        texts, lengths, (_, _, dur_style) = line_inputs(torch, pkg, pack, line, "cuda")
+        total = int(round(float(pkg.durations(texts, lengths, dur_style).cpu().numpy().sum())))
+        if audio.shape[0] != total * mc.hop_length:
+            fail(f"a {tokens.shape[0]}-token line gave {audio.shape[0]} samples, "
+                 f"not total {total} x hop {mc.hop_length}")
+        piece = wav[start:start + audio.shape[0]]
+        start += audio.shape[0]
+        seconds = audio.shape[0] / mc.sample_rate
+        lufs = integrated_loudness(piece, mc.sample_rate)
+        clipped = float(np.mean(np.abs(piece) >= 32767 / 32768))
+        pieces.append({"tokens": int(tokens.shape[0]), "frames": total,
+                       "seconds": seconds, "lufs": lufs, "clipped_share": clipped})
+        if seconds >= LUFS_MIN_SECONDS and abs(lufs - LUFS_TARGET) > LUFS_TOL:
+            fail(f"a {seconds:.2f} s piece is at {lufs:.2f} LUFS, not "
+                 f"{LUFS_TARGET} +- {LUFS_TOL}")
+    if start != wav.shape[0]:
+        fail(f"speak wrote {wav.shape[0]} samples; the lines add up to {start}")
+    log(f"speak: {len(lines)} lines, {wav.shape[0] / mc.sample_rate:.2f} s of audio in "
+        f"{speak_s:.2f} s (first call, includes loading); LUFS "
+        f"{[round(p['lufs'], 2) for p in pieces]}")
+    return pkg, pack, lines, {"wall_s": speak_s, "audio_s": wav.shape[0] / mc.sample_rate,
+                              "pieces": pieces, "params": n_params}
+
+
+def line_inputs(torch, pkg, pack, line, device):
+    """(texts, lengths, speech, pe, duration styles) of one line on ``device``."""
+    from stylish_tts_torch.tts.voicepack import lookup_static_style
+
+    tokens = pkg.tokenize(line)
+    texts, lengths = pkg._texts([tokens])
+    styles = [torch.as_tensor(s, device=device)[None]
+              for s in lookup_static_style(pack, tokens.shape[0])]
+    return texts.to(device), lengths.to(device), styles
+
+
+def phase_card_vs_cpu(torch, pkg, pack, root: Path, line: str):
+    """The same package on the CPU and on the card, one short line: the
+    durations; the waveform with one injected prior (the random source,
+    drawn once on the CPU; broadband, so the head STFT's phases are well
+    conditioned); the deterministic sine source, at a tolerance that scales
+    with its largest phase; the DC phase of a negative frame."""
+    import math
+
+    import numpy as np
+
+    from stylish_tts_torch.dsp import stft as stft_lib
+    from stylish_tts_torch.export.package import InferencePackage, frame_bucket
+
+    cpu = InferencePackage(str(root / "pkg"), device="cpu")
+    c_texts, c_lengths, (c_sp, c_pe, c_du) = line_inputs(torch, cpu, pack, line, "cpu")
+    with torch.no_grad():
+        d_cpu = cpu.durations(c_texts, c_lengths, c_du)
+        d_gpu = pkg.durations(c_texts.cuda(), c_lengths.cuda(), c_du.cuda()).cpu()
+        dur_err = float((d_cpu - d_gpu).abs().max())
+        t_cpu = int(round(float(d_cpu.numpy().sum())))
+        t_gpu = int(round(float(d_gpu.numpy().sum())))
+        if dur_err > DURATION_ATOL or frame_bucket(t_cpu) != frame_bucket(t_gpu):
+            fail(f"durations on the card vs the CPU: max err {dur_err:.3e}, frame "
+                 f"buckets {frame_bucket(t_gpu)} / {frame_bucket(t_cpu)}")
+        frames = frame_bucket(t_cpu)
+        alignment = cpu.duration_processor.duration_to_alignment(d_cpu, frames)
+        pitch, _ = cpu.models["pitch_energy_predictor"](c_texts, c_lengths, alignment, c_pe)
+        voiced = (pitch > 20.0).to(torch.float32)
+        basegen = cpu.models["speech_predictor"].generator.basegen
+        prior = basegen.source(pitch * voiced, cpu._source_generators(1))
+        w_cpu = cpu.acoustic(c_texts, c_lengths, d_cpu, c_pe, c_sp, frames, prior=prior)
+        w_gpu = pkg.acoustic(c_texts.cuda(), c_lengths.cuda(), d_cpu.cuda(), c_pe.cuda(),
+                             c_sp.cuda(), frames, prior=prior.cuda()).cpu()
+        wave_err = float((w_cpu - w_gpu).abs().max())
+        wave_peak = float(w_cpu.abs().max())
+        wave_rms = float(w_cpu.square().mean().sqrt())
+        wave_tol = WAVE_RTOL * wave_peak
+        near_threshold = int(((pitch - 20.0).abs() < 1e-2).sum())
+
+        f0 = pitch * voiced
+        s_cpu = basegen.source(f0, None, deterministic=True)
+        gpu_source = pkg.models["speech_predictor"].generator.basegen.source
+        s_gpu = gpu_source(f0.cuda(), None, deterministic=True).cpu()
+        harmonics = torch.arange(1, basegen.source.n_harm + 1, dtype=torch.float64)
+        rad = torch.remainder(f0.double()[:, None, :] * harmonics[None, :, None]
+                              / pkg.mc.sample_rate, 1.0)
+        max_phase = float((torch.cumsum(rad, -1) * 2 * math.pi * pkg.mc.hop_length).max())
+        weights = float(basegen.source.merge.weight.abs().sum())
+        source_tol = 0.1 * weights * 16 * max_phase * 2.0 ** -23
+        source_err = float((s_cpu - s_gpu).abs().max())
+
+        neg = -0.5 - torch.rand((1, 4000), generator=torch.Generator().manual_seed(3))
+        dc = {}
+        for dev in ("cpu", "cuda"):
+            mag, hx, hy = stft_lib.stft_magnitude_unit_phase(neg.to(dev), 64, 4, 64)
+            dc[dev] = torch.atan2(hy * mag, hx * mag)[:, 0].cpu()
+    if not wave_err <= wave_tol:
+        fail(f"waveform on the card vs the CPU (same prior): max err {wave_err:.3e}, "
+             f"tolerance {wave_tol:.3e} ({WAVE_RTOL} x peak {wave_peak:.4g}; RMS "
+             f"{wave_rms:.4g}; {near_threshold} frames within 1e-2 of the voiced "
+             f"threshold)")
+    if source_err > source_tol:
+        fail(f"sine source on the card vs the CPU: max err {source_err:.3e}, tolerance "
+             f"{source_tol:.3e} (max phase {max_phase:.4g} rad)")
+    if not (torch.equal(dc["cpu"], dc["cuda"])
+            and bool((dc["cuda"] == torch.tensor(math.pi, dtype=torch.float32)).all())):
+        fail("the DC phase of a negative frame is not +pi on both devices")
+    out = {"tokens": int(c_lengths[0]), "frames": frames,
+           "duration_max_abs_err": dur_err, "wave_max_abs_err": wave_err,
+           "wave_tol": wave_tol, "wave_rtol_of_peak": WAVE_RTOL, "wave_peak": wave_peak,
+           "wave_rms": wave_rms, "frames_near_voiced_threshold": near_threshold,
+           "source_max_abs_err": source_err, "source_tol": source_tol,
+           "source_max_phase_rad": max_phase, "dc_phase_plus_pi": True}
+    log(f"card vs CPU, {out['tokens']} tokens, {frames} frames: durations {dur_err:.2e}, "
+        f"wave {wave_err:.2e} (tol {wave_tol:.2e} = {WAVE_RTOL} x peak {wave_peak:.4g}; "
+        f"RMS {wave_rms:.4g}), source {source_err:.2e} (tol "
+        f"{source_tol:.2e} at max phase {max_phase:.4g} rad), DC phase +pi on both")
+    return out
+
+
+def phase_speak_times(torch, pkg, pack, lines):
+    """Per text bucket: the duration phase and the acoustic phase apart
+    (CUDA events around each call, host launches included; median of
+    N_PHASE_TIMED after one warm-up); RTF at B=1 (host clock, synchronised,
+    generate_speech end to end over every line); generate_speech_batch at
+    B=8 (text bucket 128)."""
+    import numpy as np
+
+    from stylish_tts_torch.export.package import frame_bucket
+    from stylish_tts_torch.tts.voicepack import lookup_static_style
+
+    hop = pkg.mc.hop_length
+    sr = pkg.mc.sample_rate
+    per_bucket = []
+    for line in lines:
+        texts, lengths, (sp, pe, du) = line_inputs(torch, pkg, pack, line, "cuda")
+        durations = pkg.durations(texts, lengths, du)
+        frames = frame_bucket(int(round(float(durations.sum()))))
+        dur_ms = median_ms(torch, lambda: pkg.durations(texts, lengths, du),
+                           n=N_PHASE_TIMED, warmup=1, sleep=False)
+        ac_ms = median_ms(torch, lambda: pkg.acoustic(texts, lengths, durations, pe, sp,
+                                                      frames),
+                          n=N_PHASE_TIMED, warmup=1, sleep=False)
+        per_bucket.append({"tokens": int(lengths[0]), "text_bucket": int(texts.shape[1]),
+                           "frame_bucket": frames, "duration_ms": dur_ms,
+                           "acoustic_ms": ac_ms})
+        log(f"phases at L={texts.shape[1]} F={frames}: duration {dur_ms:.2f} ms, "
+            f"acoustic {ac_ms:.2f} ms")
+
+    wall, audio_s = 0.0, 0.0
+    for line in lines:
+        tokens = pkg.tokenize(line)
+        styles = lookup_static_style(pack, tokens.shape[0])
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            audio = pkg.generate_speech(tokens, *styles)
+            times.append(time.perf_counter() - t0)
+        wall += statistics.median(times)
+        audio_s += audio.shape[0] / sr
+
+    batch_lines = speak_lines(4, BATCH_TOKENS)
+    tokens = [pkg.tokenize(line) for line in batch_lines]
+    styles = [np.stack(s) for s in zip(*(lookup_static_style(pack, t.shape[0])
+                                         for t in tokens))]
+    pkg.generate_speech_batch(tokens, *styles)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wavs = pkg.generate_speech_batch(tokens, *styles)
+        times.append(time.perf_counter() - t0)
+    batch_s = statistics.median(times)
+    batch_audio = sum(w.shape[0] for w in wavs) / sr
+    if not all(np.isfinite(w).all() for w in wavs):
+        fail("generate_speech_batch gave non-finite audio")
+    out = {"per_bucket": per_bucket, "rtf_b1": wall / audio_s, "b1_wall_s": wall,
+           "b1_audio_s": audio_s, "batch8_wall_s": batch_s, "batch8_audio_s": batch_audio,
+           "batch8_rtf": batch_s / batch_audio, "hop": hop}
+    log(f"RTF at B=1 over {len(lines)} lines: {out['rtf_b1']:.5f} ({wall:.3f} s for "
+        f"{audio_s:.2f} s of audio); batch B=8: {batch_s:.3f} s for {batch_audio:.2f} s "
+        f"(RTF {out['batch8_rtf']:.5f})")
+    return out
+
+
+def phase_speak_profile(torch, pkg, pack, line):
+    """One acoustic call at the longest line under ``torch.profiler``:
+    device ms by kernel group, launches, busy share (device ms over the
+    call's untraced time; the profiler slows the host). The port's DSP entry
+    points are wrapped in profiler ranges for the trace only, so that the
+    framed-DFT matmuls count as DFT/iSTFT and not as GEMMs."""
+    from torch.autograd import DeviceType
+
+    from stylish_tts_torch.dsp import stft as stft_lib
+    from stylish_tts_torch.export.package import frame_bucket
+
+    texts, lengths, (sp, pe, du) = line_inputs(torch, pkg, pack, line, "cuda")
+    durations = pkg.durations(texts, lengths, du)
+    frames = frame_bucket(int(round(float(durations.sum()))))
+    call = lambda: pkg.acoustic(texts, lengths, durations, pe, sp, frames)  # noqa: E731
+    call_ms = median_ms(torch, call, n=N_PHASE_TIMED, warmup=1, sleep=False)
+
+    originals = {name: getattr(stft_lib, name)
+                 for name in ("stft_magnitude_unit_phase", "istft")}
+
+    def ranged(name, fn):
+        def wrapper(*args, **kwargs):
+            with torch.profiler.record_function("dsp." + name):
+                return fn(*args, **kwargs)
+        return wrapper
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        for name, fn in originals.items():
+            setattr(stft_lib, name, ranged(name, fn))
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for name, fn in originals.items():
+            setattr(stft_lib, name, fn)
+
+    def in_dsp(evt):
+        while evt is not None:
+            if evt.name.startswith("dsp."):
+                return True
+            evt = evt.cpu_parent
+        return False
+
+    groups, kernels = {}, {}
+    launches = 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CPU:
+            continue
+        dsp = in_dsp(evt)
+        for k in evt.kernels:
+            ms = k.duration / 1e3
+            g = groups.setdefault(speak_group(k.name, dsp), {"ms": 0.0, "launches": 0})
+            g["ms"] += ms
+            g["launches"] += 1
+            row = kernels.setdefault(k.name, {"ms": 0.0, "launches": 0})
+            row["ms"] += ms
+            row["launches"] += 1
+            launches += 1
+    device_ms = sum(g["ms"] for g in groups.values())
+    if not launches or device_ms <= 0:
+        fail("the profiler trace of the acoustic call holds no device time")
+    for g in groups.values():
+        g["share_of_device"] = g["ms"] / device_ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:40]
+    profile = {"card": None, "tokens": int(lengths[0]), "text_bucket": int(texts.shape[1]),
+               "frame_bucket": frames, "audio_s": frames * pkg.mc.hop_length
+               / pkg.mc.sample_rate, "call_ms": call_ms, "traced_wall_ms": wall_ms,
+               "device_ms": device_ms, "busy_share": device_ms / call_ms,
+               "busy_share_traced": device_ms / wall_ms, "launches": launches,
+               "groups": groups, "top_kernels": [{"name": n, **v} for n, v in top]}
+    for name, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms"]):
+        log(f"acoustic device time: {g['ms']:.3f} ms x{g['launches']} {name}")
+    log(f"acoustic call at L={texts.shape[1]} F={frames}: {call_ms:.2f} ms (median "
+        f"of {N_PHASE_TIMED}), traced {wall_ms:.2f} ms, device {device_ms:.2f} ms, busy "
+        f"share {device_ms / call_ms:.3f} ({device_ms / wall_ms:.3f} of the traced "
+        f"call), {launches} launches")
+    return profile
+
+
+def phase_synthesis(torch, card: str):
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_speak_") as tmp:
+        root = Path(tmp)
+        pkg, pack, lines, speak = phase_speak(torch, root)
+        check = phase_card_vs_cpu(torch, pkg, pack, root, lines[SHORT_LINE])
+    times = phase_speak_times(torch, pkg, pack, lines)
+    profile = phase_speak_profile(torch, pkg, pack, lines[-1])
+    profile["card"] = card
+    OUT.mkdir(exist_ok=True)
+    (OUT / "profile_speak.json").write_text(json.dumps(profile, indent=1))
+    return {"speak": speak, "card_vs_cpu": check, "times": times,
+            "profile": {k: v for k, v in profile.items() if k != "top_kernels"}}
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -680,6 +1088,8 @@ def main() -> int:
     log(f"one-sequence forward per frame: {fit['fixed_us_per_frame']:.4f} us fixed "
         f"+ {fit['ns_per_state']:.4f} ns per state (points {fit['points']})")
 
+    synthesis = phase_synthesis(torch, card)
+
     src = "stylish_tts_torch/csrc/ctc.cu"
     tm = timings["main_path"]
     kernels = []
@@ -697,11 +1107,22 @@ def main() -> int:
     report = {"card": card, "main_path": {**main_run, "shape": main_shape},
               "step_ms": step_ms, "step_profile": profile, "checks": checks,
               "timings": timings, "frame_fit": fit, "kernels": kernels,
-              "wall_s": time.time() - t_start}
+              "synthesis": synthesis, "wall_s": time.time() - t_start}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     log(f"total {time.time() - t_start:.1f} s; details in {OUT / 'chip_smoke.json'}")
 
+    times, prof = synthesis["times"], synthesis["profile"]
+    print(json.dumps({"speak": {
+        "card": card, "rtf_b1": times["rtf_b1"], "batch8_rtf": times["batch8_rtf"],
+        "phases_ms": {str(b["text_bucket"]): [b["duration_ms"], b["acoustic_ms"]]
+                      for b in times["per_bucket"]},
+        "profile_frames": prof["frame_bucket"], "profile_device_ms": prof["device_ms"],
+        "profile_busy_share": prof["busy_share"], "profile_launches": prof["launches"],
+        "groups_ms": {g: v["ms"] for g, v in prof["groups"].items()},
+        **{"card_vs_cpu_" + k: synthesis["card_vs_cpu"][k]
+           for k in ("wave_max_abs_err", "wave_tol", "wave_peak", "wave_rms")}}}),
+        flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,6 @@
+"""``python -m stylish_tts_torch.cli_tts speak ...``: synthesis on the port."""
+
+from .cli import tts_cli
+
+if __name__ == "__main__":
+    tts_cli()

@@ -3,24 +3,32 @@
 A flax tree arrives as numpy arrays, nested (``{"params": {...}}`` as
 ``Module.init`` returns it) or flat with ``/``-joined keys (the layout of
 ``stylish_tts_tpu/utils/params_io.py``, which ``alignment_model.safetensors``
-uses). Layout rules:
+and an inference package's ``params.safetensors`` use). Layout rules:
 
-* conv kernels (K, Cin, Cout) <-> torch (Cout, Cin, K);
+* conv kernels (K, Cin/groups, Cout) <-> torch (Cout, Cin/groups, K);
 * Dense kernels (in, out) <-> torch Linear weights (out, in);
-* ``Norm1d`` has no parameters in ``group`` mode and ``scale``/``bias``
-  in ``affine`` mode.
+* LayerNorm and GroupNorm ``scale`` <-> ``weight``; ``embedding`` <->
+  ``Embedding.weight``;
+* per-channel (1, 1, C) parameters (GRN ``gamma``/``beta``, ``snake``,
+  ``alpha1_i``/``alpha2_i``) <-> the port's (1, C, 1);
+* ``Norm1d`` has no parameters in the aligner's ``group`` mode and
+  ``scale``/``bias`` in ``affine`` mode.
+
+Every module maps by one generic rule (``flax_layout``): its attribute
+names are the flax names, the items of a ``ModuleList`` attribute ``x`` are
+flax's ``x_0``, ``x_1``, ..., and the auto-named flax children (``Conv_0``,
+``LayerNorm_0``, ``StyleFiLM_0``, ``GRN_0``, ``Dense_i``) come from each
+port class's ``FLAX_WRAP`` / ``FLAX_NAMES``; the leaf's kind follows from
+the module that owns it. Any leaf left unmapped on either side raises.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
-
-N_TDNN = 3
-N_FFN = 5
-
+from torch import nn
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     """Nested dict -> flat ``/``-keyed dict (flat input passes through)."""
@@ -34,46 +42,108 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
+def _strip_params(params: Mapping) -> Dict[str, np.ndarray]:
+    flat = flatten(params)
+    return {k[len("params/"):] if k.startswith("params/") else k: v
+            for k, v in flat.items()}
+
+
+def _aligner_skeleton(norm_mode: str) -> nn.Module:
+    """A one-channel ``TextAligner``: its layout is that of every width."""
+    from ..models.text_aligner import TextAligner
+
+    return TextAligner(n_mels=1, n_tokens=1, hidden_dim=1, norm_mode=norm_mode)
+
+
 def text_aligner_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """flax TextAligner variables -> ``TextAligner.state_dict()``."""
-    flat = flatten(params)
-    flat = {k[len("params/"):] if k.startswith("params/") else k: v
-            for k, v in flat.items()}
-    sd: Dict[str, torch.Tensor] = {}
-
-    def take(key):
-        return torch.tensor(flat.pop(key), dtype=torch.float32)
-
-    for i in range(N_TDNN):
-        sd[f"tdnn.{i}.weight"] = take(f"tdnn_{i}/Conv_0/kernel").permute(2, 1, 0).contiguous()
-        sd[f"tdnn.{i}.bias"] = take(f"tdnn_{i}/Conv_0/bias")
-        if f"tdnn_norm_{i}/scale" in flat:
-            sd[f"tdnn_norm.{i}.scale"] = take(f"tdnn_norm_{i}/scale")
-            sd[f"tdnn_norm.{i}.bias"] = take(f"tdnn_norm_{i}/bias")
-    for name in [f"ffn.{i}" for i in range(N_FFN)] + ["out"]:
-        jname = name.replace(".", "_")
-        sd[f"{name}.weight"] = take(f"{jname}/kernel").T.contiguous()
-        sd[f"{name}.bias"] = take(f"{jname}/bias")
-    if flat:
-        raise KeyError(f"unmapped TextAligner params: {sorted(flat)}")
-    return sd
+    flat = _strip_params(params)
+    mode = "affine" if "tdnn_norm_0/scale" in flat else "group"
+    return module_from_jax(_aligner_skeleton(mode), flat)
 
 
 def text_aligner_to_jax_flat(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """``TextAligner.state_dict()`` -> the flat ``params/...`` layout that
     ``stylish_tts_tpu.utils.params_io.load_params_safetensors`` reads."""
-    sd = {k: v.detach().cpu().to(torch.float32).numpy() for k, v in state_dict.items()}
-    flat: Dict[str, np.ndarray] = {}
-    for i in range(N_TDNN):
-        flat[f"params/tdnn_{i}/Conv_0/kernel"] = sd.pop(f"tdnn.{i}.weight").transpose(2, 1, 0)
-        flat[f"params/tdnn_{i}/Conv_0/bias"] = sd.pop(f"tdnn.{i}.bias")
-        if f"tdnn_norm.{i}.scale" in sd:
-            flat[f"params/tdnn_norm_{i}/scale"] = sd.pop(f"tdnn_norm.{i}.scale")
-            flat[f"params/tdnn_norm_{i}/bias"] = sd.pop(f"tdnn_norm.{i}.bias")
-    for name in [f"ffn.{i}" for i in range(N_FFN)] + ["out"]:
-        jname = name.replace(".", "_")
-        flat[f"params/{jname}/kernel"] = sd.pop(f"{name}.weight").T
-        flat[f"params/{jname}/bias"] = sd.pop(f"{name}.bias")
+    mode = "affine" if "tdnn_norm.0.scale" in state_dict else "group"
+    return module_to_jax_flat(_aligner_skeleton(mode), state_dict)
+
+
+def _leaf(owner: nn.Module, name: str, param: torch.Tensor) -> Tuple[str, str]:
+    """(flax leaf name, layout kind) of the parameter ``name`` of ``owner``."""
+    if name == "weight":
+        if isinstance(owner, nn.Conv1d):
+            return "kernel", "conv"
+        if isinstance(owner, nn.Linear):
+            return "kernel", "dense"
+        if isinstance(owner, nn.Embedding):
+            return "embedding", "same"
+        if isinstance(owner, (nn.LayerNorm, nn.GroupNorm)):
+            return "scale", "same"
+    if param.dim() == 3:
+        return name, "channel"
+    return name, "same"
+
+
+def flax_layout(module: nn.Module) -> Dict[str, Tuple[str, str]]:
+    """``module.state_dict()`` key -> (flax path below ``params/``, kind)."""
+    out: Dict[str, Tuple[str, str]] = {}
+
+    def walk(mod: nn.Module, key: str, path: str) -> None:
+        wrap = getattr(mod, "FLAX_WRAP", None)
+        own = f"{path}/{wrap}" if wrap else path
+        for name, param in mod.named_parameters(recurse=False):
+            leaf, kind = _leaf(mod, name, param)
+            out[key + name] = (f"{own}/{leaf}".lstrip("/"), kind)
+        names = getattr(mod, "FLAX_NAMES", {})
+        for name, child in mod.named_children():
+            if isinstance(mod, nn.ModuleList):  # flax names list items attr_i
+                child_path = f"{path}_{name}"
+            else:
+                child_path = f"{path}/{names.get(name, name)}".lstrip("/")
+            walk(child, f"{key}{name}.", child_path)
+
+    walk(module, "", "")
+    return out
+
+
+def _relayout(x: np.ndarray, kind: str) -> np.ndarray:
+    """flax <-> torch layout of one leaf; each rule is its own inverse."""
+    x = np.asarray(x, dtype=np.float32)
+    if kind == "conv":
+        x = x.transpose(2, 1, 0)
+    elif kind == "dense":
+        x = x.T
+    elif kind == "channel":
+        x = x.transpose(0, 2, 1)
+    return np.array(x, order="C")
+
+
+def module_from_jax(module: nn.Module, params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax variables of ``module``'s JAX counterpart -> its ``state_dict``."""
+    flat = _strip_params(params)
+    sd: Dict[str, torch.Tensor] = {}
+    missing = []
+    for key, (path, kind) in flax_layout(module).items():
+        if path not in flat:
+            missing.append(path)
+            continue
+        sd[key] = torch.from_numpy(_relayout(flat.pop(path), kind))
+    if missing or flat:
+        raise KeyError(f"{type(module).__name__}: flax leaves missing {sorted(missing)}, "
+                       f"unmapped {sorted(flat)}")
+    return sd
+
+
+def module_to_jax_flat(module: nn.Module,
+                       state_dict: Mapping[str, torch.Tensor] | None = None
+                       ) -> Dict[str, np.ndarray]:
+    """``module``'s parameters (or ``state_dict``, laid out as ``module``'s)
+    -> the flat ``params/...`` layout of its JAX counterpart."""
+    sd = dict(module.state_dict() if state_dict is None else state_dict)
+    flat = {}
+    for key, (path, kind) in flax_layout(module).items():
+        flat[f"params/{path}"] = _relayout(sd.pop(key).detach().cpu().numpy(), kind)
     if sd:
-        raise KeyError(f"unmapped TextAligner weights: {sorted(sd)}")
-    return {k: np.ascontiguousarray(v) for k, v in flat.items()}
+        raise KeyError(f"{type(module).__name__}: unmapped weights {sorted(sd)}")
+    return flat

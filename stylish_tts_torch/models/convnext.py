@@ -1,0 +1,54 @@
+"""Style-conditioned ConvNeXt blocks over (B, C, T).
+
+Counterpart of ``stylish_tts_tpu/models/convnext.py``
+(``GeneratorConvNeXtBlock``, ``AdaptiveConvNeXtBlock``): depthwise conv
+(k=7) -> AdaptiveLayerNorm (epsilon 1e-6) -> pointwise expand ->
+activation -> GRN -> pointwise contract, residual. ``DropPath`` is the
+identity at inference and is not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .common import GRN, AdaptiveLayerNorm, Conv1d, Pointwise, channel_param, snake
+
+
+class _ConvNeXtBlock(nn.Module):
+    FLAX_NAMES = {"grn": "GRN_0"}
+
+    def __init__(self, dim: int, intermediate_dim: int, style_dim: int):
+        super().__init__()
+        self.dwconv = Conv1d(dim, dim, 7, groups=dim)
+        self.norm = AdaptiveLayerNorm(dim, style_dim, eps=1e-6)
+        self.pwconv1 = Pointwise(dim, intermediate_dim)
+        self.grn = GRN(intermediate_dim)
+        self.pwconv2 = Pointwise(intermediate_dim, dim)
+
+    def activation(self, x: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+        h = self.norm(self.dwconv(x), style)
+        h = self.activation(self.pwconv1(h))
+        return x + self.pwconv2(self.grn(h))
+
+
+class GeneratorConvNeXtBlock(_ConvNeXtBlock):
+    """Snake activation with a learned per-channel ``snake`` alpha."""
+
+    def __init__(self, dim: int, intermediate_dim: int, style_dim: int):
+        super().__init__(dim, intermediate_dim, style_dim)
+        self.snake = channel_param(intermediate_dim, 1.0)
+
+    def activation(self, x: torch.Tensor) -> torch.Tensor:
+        return snake(x, self.snake)
+
+
+class AdaptiveConvNeXtBlock(_ConvNeXtBlock):
+    """Exact (erf) GELU."""
+
+    def activation(self, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(x, approximate="none")

@@ -1,0 +1,66 @@
+"""Duration class tables and the soft alignment.
+
+Counterpart of ``stylish_tts_tpu/ops/duration.py`` (``DurationProcessor``):
+16 ordinal duration classes, softmax-expected durations, and the
+parabolic-window soft alignment, softmax-normalised over ALL text rows of
+the bucket, padded rows included (so the text bucket is part of the
+function). ``total_frames`` is the frame bucket.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+CLASS_TO_DUR = np.array(
+    [1, 2, 3, 4, 5, 6, 7, 9, 12, 15, 18, 22, 27, 32, 38, 46], dtype=np.float32
+)
+
+# dur (clamped 1..50) -> ordinal class id
+DUR_TO_CLASS = np.array(
+    [0, 0, 1, 2, 3, 4, 5, 6, 7, 7, 7, 8, 8, 8, 9, 9, 9, 10, 10, 10]
+    + [11] * 5
+    + [12] * 5
+    + [13] * 5
+    + [14] * 7
+    + [15] * 9,
+    dtype=np.int32,
+)
+
+
+class DurationProcessor:
+    """The inference half of the JAX ``DurationProcessor``; the class table
+    is fixed at 16 classes there too."""
+
+    def class_to_dur_soft(self, softdur: torch.Tensor) -> torch.Tensor:
+        """(..., classes) softmax weights -> expected duration."""
+        table = torch.as_tensor(CLASS_TO_DUR, device=softdur.device)
+        num = torch.sum(softdur * table, dim=-1)
+        return num / (torch.sum(softdur, dim=-1) + 1e-9)
+
+    def prediction_to_duration(self, pred: torch.Tensor,
+                               text_lengths: torch.Tensor) -> torch.Tensor:
+        """(B, T, classes) logits -> (B, T) expected durations, masked."""
+        confidence = torch.exp(pred - pred.amax(dim=-1, keepdim=True))
+        confidence = confidence / confidence.sum(dim=-1, keepdim=True)
+        softdur = self.class_to_dur_soft(confidence)
+        pos = torch.arange(pred.shape[1], device=pred.device)[None, :]
+        return softdur * (pos < text_lengths[:, None]).to(softdur.dtype)
+
+    def duration_to_alignment(self, duration: torch.Tensor, total_frames: int,
+                              multiplier: int = 1) -> torch.Tensor:
+        """(B, T_text) durations -> (B, T_text, total_frames) soft alignment:
+        a clipped inverted parabola per token around its cumulative span,
+        softmax over tokens per frame."""
+        duration = duration.to(torch.float32) * multiplier
+        upper = torch.cumsum(duration, dim=1)
+        lower = upper - duration
+        mean = (lower + upper) / 2.0
+        frames = torch.arange(total_frames, dtype=torch.float32,
+                              device=duration.device)[None, None, :]
+        x = frames - mean[..., None]
+        window = 1.0 - torch.square(x * 2.0 / (duration[..., None] + 6.0))
+        keep = (frames > (lower - 3.0)[..., None]) & (frames < (upper + 3.0)[..., None])
+        window = torch.where(keep, window, torch.zeros_like(window))
+        window = torch.clamp_min(window, 0.0)
+        return torch.softmax(window, dim=1)

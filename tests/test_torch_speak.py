@@ -1,0 +1,127 @@
+"""The port's ``speak`` path: loudness, voicepacks, the hashed sentence
+embedding and the CLI.
+
+The numpy/scipy copies must give exactly the JAX package's outputs
+(``assert_array_equal``; loudness to the last float bit). ``speak --device
+cpu`` writes a wav from a static voicepack (tiny config, random weights);
+without ``--device`` it asks for CUDA and raises where there is none.
+"""
+
+import numpy as np
+import pytest
+import torch
+from click.testing import CliRunner
+
+from stylish_tts_tpu.textproc import embed as jembed
+from stylish_tts_tpu.tts import loudness as jloudness
+from stylish_tts_tpu.tts import voicepack as jvoicepack
+from stylish_tts_torch.cli import tts_cli
+from stylish_tts_torch.data.wav import read_wav
+from stylish_tts_torch.export.package import export_checkpoint, frame_bucket
+from stylish_tts_torch.models import build_inference_models
+from stylish_tts_torch.textproc import embed
+from stylish_tts_torch.trainer.normalization import NormalizationStats
+from stylish_tts_torch.tts import loudness, voicepack
+from test_torch_synth_common import port_config, tiny_jax_config
+
+TEXTS = ["The quick brown fox.", "A second, longer sentence about the fox!",
+         "hɛlˈoʊ wˈɝːld", "and the dog"]
+
+
+def _styles(n=240, dim=16, seed=0):
+    rng = np.random.default_rng(seed)
+    return {
+        "speech": rng.standard_normal((n, dim)).astype(np.float32),
+        "pe": rng.standard_normal((n, dim)).astype(np.float32),
+        "duration": rng.standard_normal((n, dim)).astype(np.float32),
+        "lengths": rng.integers(5, 300, n).astype(np.int32),
+    }
+
+
+@pytest.mark.parametrize("seconds", [0.2, 3.0])
+def test_loudness_equals_jax(seconds):
+    rng = np.random.default_rng(1)
+    n = int(seconds * 24000)
+    audio = (0.3 * np.sin(2 * np.pi * 220 * np.arange(n) / 24000)
+             + 0.05 * rng.standard_normal(n)).astype(np.float32)
+    assert loudness.integrated_loudness(audio, 24000) == \
+        jloudness.integrated_loudness(audio, 24000)
+    np.testing.assert_array_equal(loudness.normalize_loudness(audio, 24000),
+                                  jloudness.normalize_loudness(audio, 24000))
+
+
+def test_static_voicepack_equals_jax(tmp_path):
+    styles = _styles()
+    pack = voicepack.build_static_pack(styles)
+    ref = jvoicepack.build_static_pack(styles)
+    for key in ("speech", "pe", "duration"):
+        np.testing.assert_array_equal(pack[key], ref[key])
+    voicepack.save_static_voicepack(str(tmp_path / "vp.safetensors"), pack)
+    loaded = jvoicepack.load_voicepack(str(tmp_path / "vp.safetensors"))
+    ours = voicepack.load_voicepack(str(tmp_path / "vp.safetensors"))
+    assert loaded["kind"] == ours["kind"] == "static"
+    for count in (0, 7, 130, 600):
+        for a, b in zip(voicepack.lookup_static_style(ours, count),
+                        jvoicepack.lookup_static_style(loaded, count)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_hashed_embedding_and_dynamic_voicepack_equal_jax(tmp_path):
+    ours = embed.get_embedder()(TEXTS)
+    ref = np.stack([jembed._hashed_ngram_embed(t) for t in TEXTS])
+    np.testing.assert_array_equal(ours, ref)
+    styles = _styles(n=len(TEXTS))
+    pack = voicepack.build_dynamic_pack(styles, TEXTS, embed.get_embedder())
+    voicepack.save_dynamic_voicepack(str(tmp_path / "dyn.safetensors"), pack)
+    loaded = jvoicepack.load_voicepack(str(tmp_path / "dyn.safetensors"))
+    assert loaded["kind"] == "dynamic"
+    query = embed.get_embedder()(["the brown fox"])[0]
+    for a, b in zip(voicepack.lookup_dynamic_style(pack, query, k=2),
+                    jvoicepack.lookup_dynamic_style(loaded, query, k=2)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.fixture(scope="module")
+def package(tmp_path_factory):
+    root = tmp_path_factory.mktemp("speak")
+    torch.manual_seed(0)
+    mc = port_config(tiny_jax_config())
+    export_checkpoint(build_inference_models(mc), mc, NormalizationStats(),
+                      str(root / "pkg"))
+    voicepack.save_static_voicepack(
+        str(root / "vp.safetensors"), voicepack.build_static_pack(_styles(dim=mc.style_dim)))
+    (root / "lines.txt").write_text("ɔnðə kˈɑːntɹɛɹi\n\nhɛlˈoʊ wˈɝːld ɐɡˈɛn\n",
+                                    encoding="utf-8")
+    return root, mc
+
+
+def test_speak_on_the_cpu_writes_a_wav(package):
+    root, mc = package
+    out = root / "out.wav"
+    result = CliRunner().invoke(tts_cli, [
+        "speak", "--model", str(root / "pkg"), "--voicepack", str(root / "vp.safetensors"),
+        "--text", str(root / "lines.txt"), "--out", str(out), "--device", "cpu",
+    ])
+    assert result.exit_code == 0, result.output + repr(result.exception)
+    assert "(2 utterances)" in result.output
+    audio = read_wav(str(out), mc.sample_rate)
+    assert audio.ndim == 1 and audio.shape[0] > 0
+    assert np.isfinite(audio).all() and np.abs(audio).max() <= 1.0
+    assert audio.shape[0] % mc.hop_length == 0
+    assert frame_bucket(audio.shape[0] // mc.hop_length) >= 100
+
+
+def test_speak_without_device_needs_cuda(package):
+    """``speak`` runs on ``cuda`` unless asked; it never carries on quietly
+    on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    root, _ = package
+    result = CliRunner().invoke(tts_cli, [
+        "speak", "--model", str(root / "pkg"), "--voicepack", str(root / "vp.safetensors"),
+        "--text", str(root / "lines.txt"), "--out", str(root / "x.wav"),
+    ])
+    assert result.exit_code != 0
+    assert isinstance(result.exception, RuntimeError)
+    assert "CUDA is not available" in str(result.exception)
+    assert not (root / "x.wav").exists()
