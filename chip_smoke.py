@@ -47,8 +47,29 @@ Phases (any failure exits non-zero):
    bucket, RTF at B=1, ``generate_speech_batch`` at B=8; one acoustic call
    at the longest line traced with ``torch.profiler`` (device time by
    kernel group, launches, busy share, ``chiprun_out/profile_speak.json``);
-6. print the synthesis summary line, the ``kernels`` JSON line, then the
-   device line last.
+6. the data-preparation front end on a fresh copy of the phase-2 corpus,
+   each command through the port's CLI on ``cuda``: ``pitch`` (YIN; one
+   batch of 8 held against the port on the CPU, voicing >= 99 % and F0
+   rel err <= 1e-3; every clip against its generating F0, median rel err
+   <= 5 %); ``train-align`` for 3 epochs with validation every 2 train
+   steps and a checkpoint every step (CTC launches: alpha_beta = steps +
+   validation batches, grad = steps; validation finite, confidence in
+   (0, 1]; checkpoints in the JAX naming, pruned to 4; the native loader
+   served every train-split batch); ``train-align --checkpoint`` from the
+   oldest kept checkpoint into a second directory (the same batch order,
+   losses within 1e-4 relative, weights within 1e-4, priors 1e-4
+   relative; save and load ms, bytes); ``align --method k2`` (an entry of
+   its text's length for every segment, summing to the 440 frames;
+   ``scores_*.txt``); the Viterbi on the card against the CPU from the
+   same log-probs, bit-identical, both methods; its time and launches at
+   B=8 and B=1; one align batch traced (``chiprun_out/profile_align.json``);
+   ``align-textgrid`` (one interval per token, xmax = frames x hop); one
+   acoustic-stage batch collated from the port-made caches with
+   ``require_pitch=True``, its soft alignment covering every frame; the
+   native loader against scipy on a batch of 69;
+7. print the synthesis and front-end summary lines, the ``kernels`` JSON
+   line (launch counts of the front end's ``train-align``), then the device
+   line last.
 
 Tolerances: the kernels carry the trellis as float-float pairs and
 normalise gamma per frame (see csrc/ctc.cu), so they are held against the
@@ -147,7 +168,9 @@ def phase_build():
 
 def write_dataset(root: Path, n_train: int, n_val: int, seed: int):
     """~5 s, 24 kHz harmonic-plus-noise clips in one duration bin, with
-    random phoneme strings of 60-150 symbols from the config's table."""
+    random phoneme strings of 60-150 symbols from the config's table.
+    Returns {wav name: (base F0 Hz, samples)}: clip i's F0 at t seconds is
+    base * (1 + 0.1 sin(2 pi 0.7 t))."""
     import numpy as np
 
     from stylish_tts_torch.config import SymbolConfig
@@ -159,12 +182,15 @@ def write_dataset(root: Path, n_train: int, n_val: int, seed: int):
     sr = 24000
     wav_dir = root / "wav-dir"
     wav_dir.mkdir(parents=True)
+    truth = {}
     for split, n in (("train", n_train), ("val", n_val)):
         lines = []
         for i in range(n):
             samples = int(rng.uniform(5.0, 5.2) * sr)
             t = np.arange(samples) / sr
-            f0 = rng.uniform(90, 220) * (1 + 0.1 * np.sin(2 * np.pi * 0.7 * t))
+            base = rng.uniform(90, 220)
+            truth[f"{split}{i}.wav"] = (base, samples)
+            f0 = base * (1 + 0.1 * np.sin(2 * np.pi * 0.7 * t))
             phase = 2 * np.pi * np.cumsum(f0) / sr
             audio = sum(np.sin(k * phase) / k for k in range(1, 6)) * 0.2
             audio = audio * (0.6 + 0.4 * np.sin(2 * np.pi * 3.1 * t) ** 2)
@@ -176,6 +202,7 @@ def write_dataset(root: Path, n_train: int, n_val: int, seed: int):
             lines.append(f"{name}|{phonemes}|0|synthetic {i}")
         (root / f"{split}-list.txt").write_text("\n".join(lines) + "\n",
                                                 encoding="utf-8")
+    return truth
 
 
 def main_batch(trainer, out_dir: Path):
@@ -1047,6 +1074,522 @@ def phase_synthesis(torch, card: str):
             "profile": {k: v for k, v in profile.items() if k != "top_kernels"}}
 
 
+# ---------------------------------------------------------------- phase 6
+
+# the front end's train-align: 3 epochs of 2 train steps (B = 69) and one
+# val-split step; validation every 2 train steps (16 ragged val clips ->
+# 16 batches of 1 each time), a checkpoint every train step
+FRONT_EPOCHS = 3
+FRONT_VAL_INTERVAL = 2
+FRONT_SAVE_INTERVAL = 1
+MAX_KEEP = 4
+# pitch: the card against the port on the CPU on one batch, and against
+# the clips' generating F0
+PITCH_VOICING_AGREE = 0.99
+PITCH_F0_RTOL = 1e-3
+PITCH_TRUTH_MEDIAN_MAX = 0.05
+PITCH_BATCH = 8
+# resume against the uninterrupted run (cuDNN's backward is not bitwise).
+# The resumed span moves a weight by at most about the sum of its lrs
+# (~1e-5 at lr <= 1e-5), so the final weights are held against that move:
+# a resume that lost the AdamW moments or skipped updates misses by a
+# sizeable share of it
+RESUME_RTOL = 1e-4
+WEIGHT_SPAN_RTOL = 0.05
+VITERBI_SCORE_ATOL = 1e-6
+TEXTGRID_SEGMENT = "train3.wav"
+N_FRONT_TIMED = 5
+
+
+def front_config(data: Path, path: Path) -> Path:
+    """The front end's YAML. A partial ``training_plan.alignment`` takes
+    ``StagePlan``'s class defaults for the fields it leaves out (batch 16,
+    lr 1e-4), so the alignment plan's own defaults are written out."""
+    import yaml
+
+    from stylish_tts_torch.config import Config
+
+    plan = Config().training_plan.alignment
+    path.write_text(yaml.safe_dump({
+        "dataset": {"path": str(data)},
+        "training": {"log_interval": 1, "val_interval": FRONT_VAL_INTERVAL,
+                     "save_interval": FRONT_SAVE_INTERVAL},
+        "training_plan": {"alignment": {"epochs": FRONT_EPOCHS,
+                                        "probe_batch_max": plan.probe_batch_max,
+                                        "lr": plan.lr}},
+    }), encoding="utf-8")
+    return path
+
+
+def cli(torch, *args):
+    """One command of the port's training CLI, in this process; returns
+    what the command returns and its wall seconds (synchronised)."""
+    from stylish_tts_torch.cli import train_cli
+
+    t0 = time.time()
+    rv = train_cli.main([*args, "--device", "cuda"], standalone_mode=False)
+    torch.cuda.synchronize()
+    return rv, time.time() - t0
+
+
+def dataset(data: Path, split: str, **caches):
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.data.dataset import FilePathDataset
+    from stylish_tts_torch.text import TextCleaner
+
+    mc = ModelConfig()
+    lines = (data / f"{split}-list.txt").read_text(encoding="utf-8").splitlines()
+    return FilePathDataset(
+        data_list=lines, root_path=str(data / "wav-dir"),
+        text_cleaner=TextCleaner(mc.symbol), sample_rate=mc.sample_rate,
+        coarse_hop_length=mc.hop_length * mc.coarse_multiplier,
+        **{k: str(data / v) for k, v in caches.items()})
+
+
+def front_pitch(torch, data, cfg, out, truth):
+    """``pitch`` through the CLI; the card against the port on the CPU on
+    one batch; every clip against its generating F0; YIN's times."""
+    import numpy as np
+
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.data.caches import load_cache
+    from stylish_tts_torch.dataprep.pitch import WINDOW, yin_pitch
+
+    mc = ModelConfig()
+    _, seconds = cli(torch, "pitch", "--config", str(cfg), "--out", str(out))
+    cache = load_cache(str(data / "pitch.safetensors"))
+    if len(cache) != len(truth):
+        fail(f"pitch wrote {len(cache)} entries for {len(truth)} clips")
+
+    ds = dataset(data, "train")
+    ds.time_bins()
+    items = [ds.load_segment(i) for i in range(PITCH_BATCH)]
+    audio = torch.from_numpy(np.stack([it["audio"] for it in items]))
+    frames = audio.shape[1] // mc.hop_length
+    t0 = time.time()
+    cpu = yin_pitch(audio, hop=mc.hop_length, frames=frames,
+                    sample_rate=mc.sample_rate).numpy()
+    cpu_s = time.time() - t0
+    card = np.stack([cache[it["path"]] for it in items])
+    agree = float(np.mean((card > 0) == (cpu > 0)))
+    both = (card > 0) & (cpu > 0)
+    rel = float(np.max(np.abs(card[both] / cpu[both] - 1))) if both.any() else 0.0
+    if agree < PITCH_VOICING_AGREE or rel > PITCH_F0_RTOL:
+        fail(f"pitch on the card vs the CPU: voicing agrees on {agree:.4f} of "
+             f"frames (>= {PITCH_VOICING_AGREE}), F0 max rel err {rel:.3e} "
+             f"(<= {PITCH_F0_RTOL})")
+
+    errs, voiced, inside = [], 0, 0
+    hop, sr = mc.hop_length, mc.sample_rate
+    for name, (base, samples) in truth.items():
+        f0 = cache[name]
+        pad = (f0.shape[0] * hop - samples) // 2
+        t = (np.arange(f0.shape[0]) * hop - WINDOW / 2 - pad) / sr
+        ok = (t > WINDOW / sr) & (t < (samples - WINDOW) / sr)
+        inside += int(ok.sum())
+        ok &= f0 > 0
+        voiced += int(ok.sum())
+        true = base * (1 + 0.1 * np.sin(2 * np.pi * 0.7 * t[ok]))
+        errs.append(np.abs(f0[ok] / true - 1))
+    errs = np.concatenate(errs)
+    median = float(np.median(errs))
+    if median > PITCH_TRUTH_MEDIAN_MAX or voiced < 0.5 * inside:
+        fail(f"pitch against the generating F0: median rel err {median:.4f} "
+             f"(<= {PITCH_TRUTH_MEDIAN_MAX}) on {voiced} of {inside} frames voiced")
+
+    on = audio.cuda()
+    yin = lambda: yin_pitch(on, hop=hop, frames=frames, sample_rate=sr)  # noqa: E731
+    batch_ms = median_ms(torch, yin, n=N_FRONT_TIMED, warmup=1, sleep=False)
+    device_ms = median_ms(torch, yin, n=N_FRONT_TIMED, warmup=1)
+    out_d = {"seconds": seconds, "segments": len(cache), "frames": frames,
+             "batch": PITCH_BATCH, "batch_ms": batch_ms, "batch_device_ms": device_ms,
+             "cpu_batch_s": cpu_s, "voicing_agree": agree, "f0_max_rel_err": rel,
+             "truth_median_rel_err": median, "truth_p90_rel_err":
+             float(np.quantile(errs, 0.9)), "truth_voiced_frames": voiced,
+             "truth_frames": inside}
+    log(f"pitch: {len(cache)} clips in {seconds:.2f} s; batch of {PITCH_BATCH} x "
+        f"{frames} frames {batch_ms:.2f} ms ({device_ms:.2f} ms behind a sleep); "
+        f"card vs CPU voicing {agree:.4f}, F0 rel {rel:.2e}; vs the generating F0 "
+        f"median {median:.4f} on {voiced}/{inside} frames")
+    return out_d
+
+
+def checkpoint_dirs(stage_dir: Path):
+    import re
+
+    names = sorted(d.name for d in stage_dir.iterdir() if d.name.startswith("checkpoint_"))
+    if not all(re.fullmatch(r"checkpoint_\d{5}_step_\d{9}", n) for n in names):
+        fail(f"checkpoint directories not in the JAX naming: {names}")
+    return names
+
+
+def front_train(torch, cfg, out):
+    """``train-align`` through the CLI with validation and checkpoints; the
+    CTC launches = steps + validation batches (alpha alone) and steps."""
+    import numpy as np
+
+    from stylish_tts_torch.data import loader
+    from stylish_tts_torch.ops import ctc_cuda
+
+    for counts in (ctc_cuda.LAUNCHES, loader.BATCHES):
+        for name in counts:
+            counts[name] = 0
+    trainer, wall = cli(torch, "train-align", "--config", str(cfg), "--out", str(out))
+    launches = dict(ctc_cuda.LAUNCHES)
+    batches = dict(loader.BATCHES)
+    steps = len(trainer.losses)
+    train_steps = trainer.manifest.current_total_step
+    val_batches = sum(v["batches"] for v in trainer.validations)
+    expect_vals = train_steps // FRONT_VAL_INTERVAL
+    if not all(np.isfinite(trainer.losses)) or steps <= train_steps:
+        fail(f"train-align losses: {trainer.losses}")
+    if len(trainer.validations) != expect_vals or not val_batches:
+        fail(f"{len(trainer.validations)} validations, expected {expect_vals}")
+    for v in trainer.validations:
+        if not (np.isfinite(v["align_loss"]) and 0.0 < v["confidence"] <= 1.0):
+            fail(f"validation at step {v['step']}: {v}")
+    if launches != {"alpha_beta": steps + val_batches, "grad": steps}:
+        fail(f"CTC launches {launches}; expected alpha_beta = {steps} steps + "
+             f"{val_batches} validation batches, grad = {steps}")
+    if batches != {"native": train_steps, "scipy": 0}:
+        fail(f"loader batches {batches}: the native loader did not serve all "
+             f"{train_steps} train-split batches")
+    names = checkpoint_dirs(out / "alignment")
+    if len(names) != MAX_KEEP or names[-1] != f"checkpoint_{FRONT_EPOCHS:05d}_step_{train_steps:09d}":
+        fail(f"checkpoints not pruned to {MAX_KEEP} ending at the last step: {names}")
+    log(f"train-align (front): {steps} steps ({train_steps} train-split), "
+        f"{len(trainer.validations)} validations of {val_batches} batches in all, "
+        f"{wall:.1f} s; launches {launches}; loader {batches}; validation "
+        f"{[(v['step'], round(v['align_loss'], 4), round(v['confidence'], 4)) for v in trainer.validations]}; "
+        f"checkpoints {names}")
+    return trainer, {
+        "wall_s": wall, "steps": steps, "train_steps": train_steps,
+        "launches": launches, "loader_batches": batches,
+        "validations": trainer.validations, "validation_batches": val_batches,
+        "checkpoints": names, "losses": trainer.losses,
+        "best_loss": trainer.manifest.best_loss}
+
+
+def front_resume(torch, cfg, work, full):
+    """``train-align --checkpoint`` from the oldest kept checkpoint into a
+    second directory, against the uninterrupted run; the checkpoint's own
+    save and load times and its size."""
+    import numpy as np
+
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.models import build_text_aligner
+    from stylish_tts_torch.trainer.checkpoint import (
+        STATE_FILE, load_checkpoint, save_checkpoint)
+    from stylish_tts_torch.trainer.state import create_train_state
+
+    stage_dir = work / "out" / "alignment"
+    names = checkpoint_dirs(stage_dir)
+    resumed, wall = cli(torch, "train-align", "--config", str(cfg), "--out",
+                        str(work / "resumed"), "--checkpoint", str(stage_dir / names[0]))
+    n = len(resumed.losses)
+    ref = np.asarray(full.losses[-n:])
+    loss_rel = float(np.max(np.abs(np.asarray(resumed.losses) - ref) / np.abs(ref)))
+    same_order = resumed.batches == full.batches[-n:]
+    last = names[-1]
+    saved = [torch.load(path, map_location="cpu", weights_only=True) for path in (
+        work / "out" / "alignment" / last / STATE_FILE,
+        work / "resumed" / "alignment" / last / STATE_FILE,
+        stage_dir / names[0] / STATE_FILE)]
+
+    def weight_diff(a, b):
+        return max(float((a["aligner"][k] - b["aligner"][k]).abs().max())
+                   for k in a["aligner"])
+
+    weight_err = weight_diff(saved[0], saved[1])
+    span = weight_diff(saved[0], saved[2])
+    prior_rel = float(((saved[0]["log_priors"] - saved[1]["log_priors"]).abs()
+                       / saved[0]["log_priors"].abs().clamp_min(1e-30)).max())
+    if (not same_order or not 0 < n < len(full.losses) or loss_rel > RESUME_RTOL
+            or not weight_err <= WEIGHT_SPAN_RTOL * span or prior_rel > RESUME_RTOL
+            or saved[0]["step"] != saved[1]["step"]):
+        fail(f"resume from {names[0]} vs the uninterrupted run: same batch order "
+             f"{same_order}, {n} steps, loss rel err {loss_rel:.3e} (<= {RESUME_RTOL}), "
+             f"weights {weight_err:.3e} (<= {WEIGHT_SPAN_RTOL} x the span's move "
+             f"{span:.3e}), priors rel {prior_rel:.3e}")
+
+    mc = ModelConfig()
+    state = create_train_state(build_text_aligner(mc), mc.text_encoder.tokens + 1, "cuda")
+    t0 = time.perf_counter()
+    state, manifest, norm = load_checkpoint(str(stage_dir / last), state)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    path = Path(save_checkpoint(str(work / "saved"), state, manifest, resumed.config,
+                                mc, norm))
+    save_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(f.stat().st_size for f in path.iterdir())
+    log(f"resume from {names[0]}: {n} steps in {wall:.1f} s, same batch order, loss "
+        f"rel err {loss_rel:.2e}, weights {weight_err:.2e} of a {span:.2e} move, priors "
+        f"rel {prior_rel:.2e}; "
+        f"checkpoint save {save_ms:.1f} ms, load {load_ms:.1f} ms, {nbytes} bytes")
+    return {"from": names[0], "steps": n, "wall_s": wall, "loss_max_rel_err": loss_rel,
+            "weight_max_abs_err": weight_err, "weight_span_max_abs": span,
+            "prior_max_rel_err": prior_rel,
+            "save_ms": save_ms, "load_ms": load_ms, "bytes": nbytes}
+
+
+def front_align(torch, data, cfg, out):
+    """``align --method k2`` through the CLI: an entry for every segment of
+    its text's length, durations summing to the frames, the scores files."""
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.data.caches import load_cache
+    from stylish_tts_torch.text import TextCleaner
+
+    _, seconds = cli(torch, "align", "--config", str(cfg), "--out", str(out),
+                     "--method", "k2")
+    cache = load_cache(str(data / "alignment.safetensors"))
+    cleaner = TextCleaner(ModelConfig().symbol)
+    n = 0
+    for split in ("train", "val"):
+        lines = (data / f"{split}-list.txt").read_text(encoding="utf-8").splitlines()
+        scores = (out / f"scores_{split}.txt").read_text(encoding="utf-8").splitlines()
+        if len(scores) != len(lines):
+            fail(f"scores_{split}.txt has {len(scores)} rows for {len(lines)} segments")
+        for line in lines:
+            name, phonemes = line.split("|")[:2]
+            durs = cache.get(name)
+            if durs is None or durs.shape != (1, len(cleaner(phonemes))):
+                fail(f"alignment of {name}: {None if durs is None else durs.shape}, "
+                     f"text of {len(cleaner(phonemes))} tokens")
+            if durs.sum() != FRONT_FRAMES:
+                fail(f"durations of {name} sum to {durs.sum()}, not {FRONT_FRAMES}")
+            n += 1
+    log(f"align: {n} segments in {seconds:.2f} s")
+    return {"seconds": seconds, "segments": n}
+
+
+def profile_ranges(torch, fn, ranges):
+    """``fn`` under ``torch.profiler``: device ms and launches per named
+    range (``record_function`` names in ``ranges``) and in all."""
+    from torch.autograd import DeviceType
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def owner(evt):
+        while evt is not None:
+            if evt.name in ranges:
+                return evt.name
+            evt = evt.cpu_parent
+        return "other"
+
+    groups = {}
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CPU:
+            continue
+        g = None
+        for k in evt.kernels:
+            g = g or groups.setdefault(owner(evt), {"device_ms": 0.0, "launches": 0})
+            g["device_ms"] += k.duration / 1e3
+            g["launches"] += 1
+    device_ms = sum(g["device_ms"] for g in groups.values())
+    launches = sum(g["launches"] for g in groups.values())
+    if not launches:
+        fail("the profiler trace holds no device time")
+    return {"traced_wall_ms": wall_ms, "device_ms": device_ms, "launches": launches,
+            "groups": groups}
+
+
+def front_viterbi(torch, data, card):
+    """The Viterbi on the card against the CPU from the same log-probs (both
+    methods), its time and launches at B = 8 and B = 1, one align batch
+    timed and traced (``chiprun_out/profile_align.json``)."""
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.data.collate import collate_batch
+    from stylish_tts_torch.dataprep.align import (
+        align_mel_transform, forced_align_batch, posteriors)
+    from stylish_tts_torch.models import build_text_aligner
+    from stylish_tts_torch.ops.ctc import ctc_forced_align
+    from stylish_tts_torch.trainer.normalization import NormalizationStats
+    from stylish_tts_torch.utils.params_io import load_text_aligner_safetensors
+
+    mc = ModelConfig()
+    aligner = build_text_aligner(mc)
+    load_text_aligner_safetensors(str(data / "alignment_model.safetensors"), aligner)
+    aligner = aligner.cuda().eval()
+    norm = NormalizationStats.load(str(data.parent / "out" / "normalization.json"))
+    to_mel = align_mel_transform(mc)
+    blank = mc.text_encoder.tokens
+    ds = dataset(data, "train")
+    ds.time_bins()
+    batch, _ = collate_batch([ds.load_segment(i) for i in range(8)],
+                             hop_length=mc.hop_length, require_pitch=False)
+    audio = torch.from_numpy(batch.audio_gt).cuda()
+    text = torch.from_numpy(batch.text).cuda()
+    lengths = torch.from_numpy(batch.text_lengths).cuda()
+    log_probs, frames = posteriors(aligner, to_mel, norm, audio)
+
+    check = {}
+    for method in ("k2", "torch"):
+        card_res, card_blank = forced_align_batch(log_probs, frames, text, lengths,
+                                                  blank, method)
+        cpu_res, cpu_blank = forced_align_batch(log_probs.cpu(), frames.cpu(),
+                                                text.cpu(), lengths.cpu(), blank, method)
+        same = all(torch.equal(getattr(card_res, k).cpu(), getattr(cpu_res, k))
+                   for k in ("frame_tokens", "durations", "onsets"))
+        score_err = float((card_res.scores.cpu() - cpu_res.scores).abs().max())
+        if not same or not torch.equal(card_blank.cpu(), cpu_blank) \
+                or score_err > VITERBI_SCORE_ATOL:
+            fail(f"Viterbi ({method}) on the card vs the CPU from the same log-probs: "
+                 f"integer outputs equal {same}, scores max err {score_err:.3e}")
+        check[method] = {"bit_identical": True, "score_max_abs_err": score_err}
+
+    def batch_call():
+        lp, fr = posteriors(aligner, to_mel, norm, audio)
+        res, _ = forced_align_batch(lp, fr, text, lengths, blank, "k2")
+        return res.durations.cpu()
+
+    batch_ms = median_ms(torch, batch_call, n=N_FRONT_TIMED, warmup=1, sleep=False)
+    inner = torch.cat([text[:, 1:], torch.zeros_like(text[:, :1])], 1)
+    inner_len = torch.clamp(lengths - 2, min=1)
+    viterbi = {}
+    for b in (8, 1):
+        args = (log_probs[:b].contiguous(), frames[:b], inner[:b], inner_len[:b], blank)
+        call = lambda: ctc_forced_align(*args)  # noqa: E731
+        ms = median_ms(torch, call, n=N_FRONT_TIMED, warmup=1, sleep=False)
+        prof = profile_ranges(torch, call, ())
+        viterbi[f"b{b}"] = {"ms": ms, "device_ms": prof["device_ms"],
+                            "launches": prof["launches"], "T": int(log_probs.shape[1]),
+                            "U": int(inner.shape[1])}
+    def ranged_batch():
+        with torch.profiler.record_function("align.posteriors"):
+            lp, fr = posteriors(aligner, to_mel, norm, audio)
+        with torch.profiler.record_function("align.viterbi"):
+            res, _ = forced_align_batch(lp, fr, text, lengths, blank, "k2")
+        return res.durations.cpu()
+
+    prof = profile_ranges(torch, ranged_batch, ("align.posteriors", "align.viterbi"))
+    profile = {"card": card, "B": 8, "T": int(log_probs.shape[1]),
+               "text_bucket": int(text.shape[1]), "batch_ms": batch_ms,
+               "busy_share": prof["device_ms"] / batch_ms, **prof}
+    OUT.mkdir(exist_ok=True)
+    (OUT / "profile_align.json").write_text(json.dumps(profile, indent=1))
+    log(f"Viterbi card vs CPU bit-identical (k2 and torch; scores "
+        f"{max(c['score_max_abs_err'] for c in check.values()):.1e}); align batch B=8 "
+        f"{batch_ms:.2f} ms, device {prof['device_ms']:.2f} ms in {prof['launches']} "
+        f"launches (busy {profile['busy_share']:.3f}); Viterbi "
+        + ", ".join(f"{k}: {v['ms']:.2f} ms, device {v['device_ms']:.2f} ms, "
+                    f"{v['launches']} launches" for k, v in viterbi.items()))
+    return {"check": check, "batch_ms": batch_ms, "viterbi": viterbi,
+            "profile": {k: v for k, v in profile.items() if k != "card"}}
+
+
+def front_textgrid(torch, data, cfg, out):
+    """``align-textgrid`` through the CLI on one segment: one interval per
+    token, xmax = frames x hop."""
+    import re
+
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.text import TextCleaner
+
+    mc = ModelConfig()
+    cli(torch, "align-textgrid", "--config", str(cfg), "--out", str(out),
+        "--segment", TEXTGRID_SEGMENT)
+    text = (out / TEXTGRID_SEGMENT.replace(".wav", ".TextGrid")).read_text(encoding="utf-8")
+    line = next(x for x in (data / "train-list.txt").read_text(encoding="utf-8").splitlines()
+                if x.startswith(TEXTGRID_SEGMENT + "|"))
+    n_tokens = len(TextCleaner(mc.symbol)(line.split("|")[1]))
+    intervals = int(re.search(r"intervals: size = (\d+)", text).group(1))
+    xmax = float(re.search(r"^xmax = ([\d.]+)$", text, re.M).group(1))
+    want = FRONT_FRAMES * mc.hop_length / mc.sample_rate
+    if intervals != n_tokens or abs(xmax - want) > 1e-6:
+        fail(f"TextGrid of {TEXTGRID_SEGMENT}: {intervals} intervals for {n_tokens} "
+             f"tokens, xmax {xmax} (expected {want})")
+    log(f"align-textgrid: {intervals} intervals, xmax {xmax} s")
+    return {"intervals": intervals, "xmax": xmax}
+
+
+def front_ready(torch, data):
+    """The acoustic stage's input from the port-made caches: one batch
+    collated with ``require_pitch=True``, its soft alignment covering every
+    frame (each frame peaks on a token whose span lies within 3 frames)."""
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.data.collate import collate_batch
+    from stylish_tts_torch.ops.duration import DurationProcessor
+
+    ds = dataset(data, "train", pitch_path="pitch.safetensors",
+                 alignment_path="alignment.safetensors")
+    ds.time_bins()
+    batch, _ = collate_batch([ds.load_segment(i) for i in range(8)],
+                             hop_length=ModelConfig().hop_length, require_pitch=True)
+    frames = batch.pitch.shape[1]
+    durations = torch.from_numpy(batch.durations).cuda()
+    alignment = DurationProcessor().duration_to_alignment(durations, frames)
+    upper = torch.cumsum(durations.float(), 1)
+    lower = upper - durations.float()
+    owner = alignment.argmax(1)
+    f = torch.arange(frames, device="cuda", dtype=torch.float32)[None, :]
+    covered = bool(((torch.gather(lower, 1, owner) - 3 < f)
+                    & (f < torch.gather(upper, 1, owner) + 3)).all())
+    col = float((alignment.sum(1) - 1).abs().max())
+    if (frames != FRONT_FRAMES or not (batch.durations.sum(1) == frames).all()
+            or not covered or col > 1e-5 or not (batch.pitch > 0).any()):
+        fail(f"acoustic-stage batch from the port's caches: frames {frames}, "
+             f"duration sums {batch.durations.sum(1).tolist()}, covered {covered}, "
+             f"column sums off by {col:.2e}")
+    log(f"acoustic-stage batch: B={batch.text.shape[0]}, {frames} frames, text bucket "
+        f"{batch.text.shape[1]}, alignment covers every frame")
+    return {"B": int(batch.text.shape[0]), "frames": frames,
+            "text_bucket": int(batch.text.shape[1])}
+
+
+def front_loader(torch, data):
+    """The native loader against the scipy path on one planned batch."""
+    from stylish_tts_torch.data.loader import PrefetchLoader
+
+    ds = dataset(data, "train")
+    ds.time_bins()
+    idxs = list(range(min(FRONT_BATCH, len(ds))))
+    out = {}
+    for name, native in (("native", True), ("scipy", False)):
+        ldr = PrefetchLoader(ds, [], ds.coarse_hop_length, require_pitch=False,
+                             use_native=native)
+        times = []
+        for _ in range(N_FRONT_TIMED):
+            t0 = time.perf_counter()
+            ldr.load_items(idxs)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name + "_ms"] = statistics.median(times)
+    log(f"loader, batch of {len(idxs)}: native {out['native_ms']:.1f} ms, "
+        f"scipy {out['scipy_ms']:.1f} ms")
+    return out
+
+
+FRONT_FRAMES = 440  # the clips' duration bin: 19 * 20 + 60 frames
+FRONT_BATCH = 69  # the planned batch of that bin at probe_batch_max 128
+
+
+def phase_front_end(torch, work: Path, card: str):
+    """pitch -> train-align (validated, checkpointed) -> resume -> align ->
+    align-textgrid through the port's CLI on a fresh copy of the synthetic
+    corpus; then the acoustic stage's batch and the loader."""
+    data = work / "data"
+    truth = write_dataset(data, n_train=160, n_val=16, seed=0)
+    cfg = front_config(data, work / "front.yml")
+    out = work / "out"
+    t0 = time.time()
+    report = {"pitch": front_pitch(torch, data, cfg, out, truth)}
+    trainer, report["train_align"] = front_train(torch, cfg, out)
+    report["resume"] = front_resume(torch, cfg, work, trainer)
+    report["align"] = front_align(torch, data, cfg, out)
+    report["viterbi"] = front_viterbi(torch, data, card)
+    report["textgrid"] = front_textgrid(torch, data, cfg, out)
+    report["ready"] = front_ready(torch, data)
+    report["loader"] = front_loader(torch, data)
+    report["wall_s"] = time.time() - t0
+    log(f"front end: {report['wall_s']:.1f} s")
+    return report
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1088,6 +1631,12 @@ def main() -> int:
     log(f"one-sequence forward per frame: {fit['fixed_us_per_frame']:.4f} us fixed "
         f"+ {fit['ns_per_state']:.4f} ns per state (points {fit['points']})")
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_front_") as tmp:
+        front = phase_front_end(torch, Path(tmp), card)
+    launches = front["train_align"]["launches"]
+    if not all(launches.values()):
+        fail(f"a CTC kernel of the front end's train-align never launched: {launches}")
+
     synthesis = phase_synthesis(torch, card)
 
     src = "stylish_tts_torch/csrc/ctc.cu"
@@ -1107,7 +1656,8 @@ def main() -> int:
     report = {"card": card, "main_path": {**main_run, "shape": main_shape},
               "step_ms": step_ms, "step_profile": profile, "checks": checks,
               "timings": timings, "frame_fit": fit, "kernels": kernels,
-              "synthesis": synthesis, "wall_s": time.time() - t_start}
+              "front_end": front, "synthesis": synthesis,
+              "wall_s": time.time() - t_start}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     log(f"total {time.time() - t_start:.1f} s; details in {OUT / 'chip_smoke.json'}")
@@ -1123,6 +1673,27 @@ def main() -> int:
         **{"card_vs_cpu_" + k: synthesis["card_vs_cpu"][k]
            for k in ("wave_max_abs_err", "wave_tol", "wave_peak", "wave_rms")}}}),
         flush=True)
+    vit = front["viterbi"]
+    print(json.dumps({"front_end": {
+        "card": card, "wall_s": front["wall_s"],
+        "pitch_s": front["pitch"]["seconds"], "pitch_batch8_ms": front["pitch"]["batch_ms"],
+        "pitch_voicing_agree": front["pitch"]["voicing_agree"],
+        "pitch_f0_max_rel_err": front["pitch"]["f0_max_rel_err"],
+        "pitch_truth_median_rel_err": front["pitch"]["truth_median_rel_err"],
+        "train_align_s": front["train_align"]["wall_s"],
+        "train_align_launches": launches,
+        "validation_batches": front["train_align"]["validation_batches"],
+        "resume_loss_max_rel_err": front["resume"]["loss_max_rel_err"],
+        "resume_weight_max_abs_err": front["resume"]["weight_max_abs_err"],
+        "resume_weight_span_max_abs": front["resume"]["weight_span_max_abs"],
+        "checkpoint_save_ms": front["resume"]["save_ms"],
+        "checkpoint_load_ms": front["resume"]["load_ms"],
+        "checkpoint_bytes": front["resume"]["bytes"],
+        "align_s": front["align"]["seconds"], "align_batch8_ms": vit["batch_ms"],
+        "viterbi_ms": {k: v["ms"] for k, v in vit["viterbi"].items()},
+        "viterbi_launches": {k: v["launches"] for k, v in vit["viterbi"].items()},
+        "align_busy_share": vit["profile"]["busy_share"],
+        "loader_ms": front["loader"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

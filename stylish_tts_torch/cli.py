@@ -1,11 +1,17 @@
 """Command-line interface of the port: ``python -m stylish_tts_torch.cli``
 (training) and ``python -m stylish_tts_torch.cli_tts`` (synthesis).
 
-Counterpart of ``stylish_tts_tpu/cli.py``; ported so far: ``train-align``
-and ``speak``.
+Counterpart of ``stylish_tts_tpu/cli.py``; ported so far: ``pitch``
+(YIN), ``train-align`` (with ``--checkpoint``), ``align``,
+``align-textgrid`` and ``speak``. Every command runs on ``--device cuda``
+unless told ``--device cpu``, and raises where CUDA is missing.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import os
+import os.path as osp
 
 import click
 import numpy as np
@@ -18,22 +24,179 @@ def train_cli():
     """stylish-train (PyTorch port): training toolkit."""
 
 
+DEVICE_HELP = "torch device; 'cpu' runs on the CPU (the plain CTC instead of the kernels)"
+
+
 @train_cli.command("train-align")
 @click.option("--config", "config_path", required=True, type=click.Path(exists=True))
 @click.option("--model-config", "model_config_path", type=click.Path(exists=True))
 @click.option("--out", "out_dir", required=True, type=click.Path())
-@click.option("--device", default="cuda", show_default=True,
-              help="torch device; 'cpu' runs the plain CTC instead of the kernels")
-def train_align(config_path, model_config_path, out_dir, device):
-    """Alignment (CTC) pretraining; saves alignment_model.safetensors."""
+@click.option("--checkpoint", default=None, type=click.Path(exists=True),
+              help="checkpoint directory to resume from")
+@click.option("--device", default="cuda", show_default=True, help=DEVICE_HELP)
+def train_align(config_path, model_config_path, out_dir, checkpoint, device):
+    """Alignment (CTC) pretraining; saves alignment_model.safetensors.
+    Returns the Trainer to callers that run the command in-process."""
     from .trainer.loop import Trainer
 
+    config, model_config = _load_configs(config_path, model_config_path)
+    trainer = Trainer(config, model_config, out_dir, device=device)
+    trainer.train("alignment", checkpoint=checkpoint)
+    return trainer
+
+
+def _load_configs(config_path, model_config_path):
     config = load_config_yaml(config_path) if config_path else Config()
     model_config = (
         load_model_config_yaml(model_config_path) if model_config_path
         else ModelConfig()
     )
-    Trainer(config, model_config, out_dir, device=device).train("alignment")
+    return config, model_config
+
+
+def _trained_aligner(trainer):
+    """The aligner of ``alignment_model.safetensors`` (either package's),
+    on the trainer's device, in eval mode."""
+    from .models import build_text_aligner
+    from .utils.params_io import load_text_aligner_safetensors
+
+    path = trainer.data_path(trainer.config.dataset.alignment_model_path)
+    if not osp.isfile(path):
+        raise click.ClickException(
+            f"No alignment model at {path}; run train-align first."
+        )
+    aligner = build_text_aligner(trainer.mc)
+    load_text_aligner_safetensors(path, aligner)
+    return aligner.to(trainer.device).eval()
+
+
+@train_cli.command("align")
+@click.option("--config", "config_path", required=True, type=click.Path(exists=True))
+@click.option("--model-config", "model_config_path", type=click.Path(exists=True))
+@click.option("--out", "out_dir", required=True, type=click.Path())
+@click.option(
+    "--method",
+    type=click.Choice(["k2", "torch"], case_sensitive=False),
+    default="k2",
+    help="Duration attribution: 'k2' gives leading/trailing silence to "
+    "the pad tokens; 'torch' leaves blanks with the preceding token.",
+)
+@click.option("--device", default="cuda", show_default=True, help=DEVICE_HELP)
+def align(config_path, model_config_path, out_dir, method, device):
+    """Generate the forced-alignment cache for both splits."""
+    from .dataprep.align import calculate_alignments, write_alignment_outputs
+    from .trainer.loop import Trainer
+
+    config, model_config = _load_configs(config_path, model_config_path)
+    trainer = Trainer(config, model_config, out_dir, device=device)
+    aligner = _trained_aligner(trainer)
+    train_ds = trainer.build_dataset(config.dataset.train_data)
+    val_ds = trainer.build_dataset(config.dataset.val_data)
+    trainer.init_normalization(train_ds, out_dir)
+
+    durations, confidences = {}, {}
+    for split, ds in (("train", train_ds), ("val", val_ds)):
+        durations[split], confidences[split] = calculate_alignments(
+            ds, aligner, model_config, trainer.normalization,
+            method=method.lower(),
+        )
+    write_alignment_outputs(
+        out_dir, trainer.data_path(config.dataset.alignment_path),
+        durations, confidences,
+    )
+    click.echo(
+        f"wrote alignments for "
+        f"{sum(len(v) for v in durations.values())} segments"
+    )
+
+
+@train_cli.command("align-textgrid")
+@click.option("--config", "config_path", required=True, type=click.Path(exists=True))
+@click.option("--model-config", "model_config_path", type=click.Path(exists=True))
+@click.option("--out", "out_dir", required=True, type=click.Path())
+@click.option("--segment", required=True, help="wav filename from the train list")
+@click.option("--device", default="cuda", show_default=True, help=DEVICE_HELP)
+def align_textgrid(config_path, model_config_path, out_dir, segment, device):
+    """Align one segment and write a Praat .TextGrid for inspection."""
+    from .dataprep.align import calculate_alignments
+    from .trainer.loop import Trainer
+
+    config, model_config = _load_configs(config_path, model_config_path)
+    trainer = Trainer(config, model_config, out_dir, device=device)
+    aligner = _trained_aligner(trainer)
+    ds = trainer.build_dataset(config.dataset.train_data)
+    trainer.init_normalization(ds, out_dir)
+    target = [s for s in ds.segments if s.wav_path == segment]
+    if not target:
+        raise click.ClickException(f"segment {segment} not in train list")
+    # the one segment, re-indexed to its place in the shortened list
+    ds.segments = [dataclasses.replace(target[0], index=0)]
+    durations, confidences = calculate_alignments(
+        ds, aligner, model_config, trainer.normalization,
+    )
+    durs = durations[segment][0]
+    hop_s = model_config.hop_length / model_config.sample_rate
+    phonemes = "$" + target[0].phonemes + "$"
+    os.makedirs(out_dir, exist_ok=True)
+    out_path = osp.join(out_dir, segment.replace(".wav", ".TextGrid"))
+    _write_textgrid(out_path, phonemes, durs, hop_s)
+    click.echo(f"wrote {out_path} (confidence {confidences[segment]:.3f})")
+
+
+def _write_textgrid(path, phonemes, durations, hop_seconds):
+    total = float(durations.sum()) * hop_seconds
+    lines = [
+        'File type = "ooTextFile"', 'Object class = "TextGrid"', "",
+        "xmin = 0", f"xmax = {total:.6f}", "tiers? <exists>", "size = 1",
+        "item []:", "    item [1]:", '        class = "IntervalTier"',
+        '        name = "phones"', "        xmin = 0",
+        f"        xmax = {total:.6f}",
+        f"        intervals: size = {len(durations)}",
+    ]
+    t = 0.0
+    for i, d in enumerate(durations):
+        t2 = t + float(d) * hop_seconds
+        ph = phonemes[i] if i < len(phonemes) else ""
+        lines += [
+            f"        intervals [{i + 1}]:",
+            f"            xmin = {t:.6f}",
+            f"            xmax = {t2:.6f}",
+            f'            text = "{ph}"',
+        ]
+        t = t2
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+@train_cli.command("pitch")
+@click.option("--config", "config_path", required=True, type=click.Path(exists=True))
+@click.option("--model-config", "model_config_path", type=click.Path(exists=True))
+@click.option("--out", "out_dir", required=True, type=click.Path())
+@click.option("--method", default="yin", type=click.Choice(["yin", "rmvpe"]),
+              help="'yin' (batched DSP on the device); 'rmvpe' is not ported yet")
+@click.option("--device", default="cuda", show_default=True, help=DEVICE_HELP)
+def pitch(config_path, model_config_path, out_dir, method, device):
+    """Generate the pitch cache (batched YIN) for both splits."""
+    if method == "rmvpe":
+        raise click.ClickException(
+            "--method rmvpe is not ported yet; use --method yin"
+        )
+    from .data.caches import save_cache
+    from .dataprep.pitch import extract_pitch_for_dataset
+    from .trainer.loop import Trainer
+
+    config, model_config = _load_configs(config_path, model_config_path)
+    trainer = Trainer(config, model_config, out_dir, device=device)
+    cache = {}
+    for list_name in (config.dataset.train_data, config.dataset.val_data):
+        ds = trainer.build_dataset(list_name)
+        cache.update(extract_pitch_for_dataset(
+            ds, model_config.hop_length, model_config.sample_rate,
+            device=trainer.device,
+        ))
+    out_path = trainer.data_path(config.dataset.pitch_path)
+    save_cache(out_path, cache)
+    click.echo(f"wrote pitch for {len(cache)} segments to {out_path}")
 
 
 @click.group()

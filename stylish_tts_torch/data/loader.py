@@ -1,22 +1,28 @@
 """Prefetching host-side data loader.
 
 The port's counterpart of ``stylish_tts_tpu/data/loader.py``: a
-background thread pipelines [sample -> load (scipy WAV IO) -> collate ->
-host-to-device copy] ahead of the training step. The JAX package's
-native C++ batch loader is not ported yet, so audio always comes through
-``dataset.load_segment``.
+background thread pipelines [sample -> load -> collate -> host-to-device
+copy] ahead of the training step. Audio comes through the native C++
+batch loader (``native/``) when it builds and every segment of the batch
+has its time bin from the header scan, otherwise through
+``dataset.load_segment`` (scipy WAV IO). ``BATCHES`` counts which path
+served each batch.
 """
 
 from __future__ import annotations
 
+import os.path as osp
 import queue
 import threading
 from typing import Iterator
 
 from .collate import collate_batch
-from .dataset import FilePathDataset
+from .dataset import FilePathDataset, get_frame_count
 
 _SENTINEL = object()
+
+# batches served by each audio path, bumped once per loaded batch
+BATCHES = {"native": 0, "scipy": 0}
 
 
 class PrefetchLoader:
@@ -29,6 +35,7 @@ class PrefetchLoader:
         require_pitch: bool = True,
         device_put=None,
         depth: int = 2,
+        use_native: bool = True,
     ):
         self.dataset = dataset
         self.sampler = sampler
@@ -36,6 +43,36 @@ class PrefetchLoader:
         self.require_pitch = require_pitch
         self.device_put = device_put
         self.depth = depth
+        self._native = None
+        if use_native:
+            from .. import native
+
+            self._native = native if native.available() else None
+
+    def load_items(self, idxs):
+        """The segments ``idxs`` of one time bin as ``load_segment`` dicts,
+        their audio from the native loader where it serves."""
+        use_native = self._native is not None and all(
+            self.dataset.segments[i].time_bin != -1 for i in idxs
+        )
+        items = [
+            self.dataset.load_segment(i, load_audio=not use_native)
+            for i in idxs
+        ]
+        if use_native:
+            paths = [
+                osp.join(self.dataset.root_path, self.dataset.segments[i].wav_path)
+                for i in idxs
+            ]
+            frames = get_frame_count(self.dataset.segments[idxs[0]].time_bin)
+            audio = self._native.load_wav_batch(
+                paths, self.dataset.sample_rate,
+                frames * self.dataset.coarse_hop_length,
+            )
+            for k, item in enumerate(items):
+                item["audio"] = audio[k]
+        BATCHES["native" if use_native else "scipy"] += 1
+        return items
 
     def __iter__(self) -> Iterator:
         q: queue.Queue = queue.Queue(maxsize=self.depth)
@@ -57,9 +94,8 @@ class PrefetchLoader:
                 for time_bin, idxs in self.sampler:
                     if stop.is_set():
                         break
-                    items = [self.dataset.load_segment(i) for i in idxs]
                     batch, paths = collate_batch(
-                        items, hop_length=self.hop_length,
+                        self.load_items(idxs), hop_length=self.hop_length,
                         require_pitch=self.require_pitch,
                     )
                     if self.device_put is not None:

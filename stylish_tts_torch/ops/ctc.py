@@ -1,4 +1,5 @@
-"""Batched CTC loss with label priors, in plain PyTorch.
+"""Batched CTC loss with label priors, and Viterbi forced alignment, in
+plain PyTorch.
 
 Counterpart of ``stylish_tts_tpu/ops/ctc.py`` and the spec that the CUDA
 kernels of ``ops/ctc_cuda.py`` are held to. Label-prior CTC ("Less Peaky
@@ -20,7 +21,7 @@ different, meaningless gradient).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -211,6 +212,96 @@ def ctc_grad_from_alphas_betas(alphas, betas, ll, labels, input_lengths,
                             device=gamma.device)
     occupancy.scatter_add_(2, ext[:, None, :].expand(b, t_max, s_max), gamma)
     return -g.to(gamma.dtype)[:, None, None] * occupancy
+
+
+class ForcedAlignResult(NamedTuple):
+    frame_tokens: torch.Tensor  # (B, T) int32 token index per frame (-1 past length)
+    durations: torch.Tensor  # (B, U) int32 frames per token
+    scores: torch.Tensor  # (B,) float32 mean per-frame log-prob of the best path
+    onsets: torch.Tensor  # (B, T) bool: first frame of each token's label state
+
+
+def ctc_forced_align(
+    log_probs: torch.Tensor,  # (B, T, C)
+    input_lengths: torch.Tensor,  # (B,)
+    labels: torch.Tensor,  # (B, U)
+    label_lengths: torch.Tensor,  # (B,)
+    blank_id: int,
+) -> ForcedAlignResult:
+    """Viterbi best path through the CTC trellis, then a backtrace through
+    int8 back-pointers (T-1, B, S).
+
+    Blank frames go to the preceding token (a leading blank to the first),
+    and ``onsets`` marks the first frame of each label state, from which
+    ``dataprep/align.py`` ``k2_pad_attribution`` builds the pad durations.
+    The choice among (stay, step1, step2) is the first maximum, written as
+    comparisons, as ``jnp.argmax`` picks it. Everything is max-plus with
+    elementwise adds, so the same ``log_probs`` give bit-identical integer
+    outputs on every device. Neither loop reads a device value on the host.
+    """
+    log_probs = log_probs.to(torch.float32)
+    b, t_max, _ = log_probs.shape
+    device = log_probs.device
+    labels = labels.long()
+    label_lengths = label_lengths.long()
+    input_lengths = input_lengths.long()
+    u_max = labels.shape[1]
+    s_max = 2 * u_max + 1
+    ext = _extended_labels(labels, blank_id)
+    skip_ok = _transition_masks(ext, blank_id)
+    emits = torch.gather(log_probs, 2, ext[:, None, :].expand(b, t_max, s_max))
+    neg = torch.full((b, s_max), NEG, dtype=torch.float32, device=device)
+    state_idx = torch.arange(s_max, device=device)[None, :]
+    state_valid = state_idx < 2 * label_lengths[:, None] + 1
+    init = (state_idx == 0) | ((state_idx == 1) & (label_lengths[:, None] > 0))
+    alpha = torch.where(init, emits[:, 0], neg)
+
+    one = torch.ones((), dtype=torch.int8, device=device)
+    two = torch.full((), 2, dtype=torch.int8, device=device)
+    zero = torch.zeros((), dtype=torch.int8, device=device)
+    choices = torch.empty((max(t_max - 1, 0), b, s_max), dtype=torch.int8,
+                          device=device)
+    for t in range(1, t_max):
+        step1 = F.pad(alpha, (1, 0), value=NEG)[:, :s_max]
+        step2 = torch.where(skip_ok, F.pad(alpha, (2, 0), value=NEG)[:, :s_max], neg)
+        best01 = torch.maximum(alpha, step1)
+        choice = torch.where(step2 > best01, two, torch.where(step1 > alpha, one, zero))
+        best = torch.where(state_valid, torch.maximum(best01, step2) + emits[:, t], neg)
+        active = (t < input_lengths)[:, None]
+        alpha = torch.where(active, best, alpha)
+        choices[t - 1] = torch.where(active, choice, zero)
+
+    last_blank = 2 * label_lengths
+    last_label = torch.clamp(2 * label_lengths - 1, min=0)
+    fb = torch.gather(alpha, 1, last_blank[:, None])[:, 0]
+    fl = torch.gather(alpha, 1, last_label[:, None])[:, 0]
+    state = torch.where(fb >= fl, last_blank, last_label)
+    best_ll = torch.maximum(fb, fl)
+
+    # backtrace: state(t-1) = state(t) - choice[t-1, state(t)]; choices
+    # are 0 (stay) past each sequence's length, so the padded tail is a no-op
+    states = torch.empty((t_max, b), dtype=torch.long, device=device)
+    states[t_max - 1] = state
+    for t in range(t_max - 1, 0, -1):
+        state = state - torch.gather(choices[t - 1], 1, state[:, None])[:, 0].long()
+        states[t - 1] = state
+    states = states.transpose(0, 1)  # (B, T)
+
+    # label state 2u+1 -> token u; blank state 2u -> token u-1, clipped
+    tokens = torch.where(states % 2 == 1, states // 2, states // 2 - 1)
+    tokens = torch.minimum(torch.clamp(tokens, min=0),
+                           torch.clamp(label_lengths - 1, min=0)[:, None])
+    frame_valid = (torch.arange(t_max, device=device)[None, :]
+                   < input_lengths[:, None])
+    frame_tokens = torch.where(frame_valid, tokens, torch.full_like(tokens, -1))
+    durations = (frame_tokens[:, :, None]
+                 == torch.arange(u_max, device=device)[None, None, :]).sum(dim=1)
+    changed = torch.ones_like(frame_valid)
+    changed[:, 1:] = states[:, 1:] != states[:, :-1]
+    onsets = (states % 2 == 1) & changed & frame_valid
+    scores = best_ll / torch.clamp(input_lengths, min=1).to(torch.float32)
+    return ForcedAlignResult(frame_tokens.to(torch.int32), durations.to(torch.int32),
+                             scores, onsets)
 
 
 def accumulate_label_priors(

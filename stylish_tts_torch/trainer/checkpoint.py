@@ -1,0 +1,107 @@
+"""Checkpoint / resume: the port's ``stylish_tts_tpu/trainer/checkpoint.py``.
+
+Directory naming ``checkpoint_{epoch:05d}_step_{step:09d}`` and the JSON
+sidecars (``manifest.json``, ``config.json``, ``model_config.json``,
+``normalization.json``) are the JAX package's. The tensor state is the
+port's own: ``state.pt``, ``TrainState.state_dict()`` written with
+``torch.save`` and read back with ``weights_only=True`` (the JAX package
+writes an orbax tree, which the port does not read). Resume semantics
+live in ``trainer/loop.py``: same stage -> fast-forward the sampler by
+``current_step``; another stage -> fresh counters.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import os.path as osp
+import shutil
+from dataclasses import asdict, dataclass, field
+from typing import Optional
+
+import torch
+
+from ..config import Config, ModelConfig
+from .normalization import NormalizationStats
+from .state import TrainState
+
+STATE_FILE = "state.pt"
+
+
+@dataclass
+class Manifest:
+    """Training progress counters (the JAX ``Manifest``, same fields)."""
+
+    current_epoch: int = 1
+    current_step: int = 1
+    current_total_step: int = 0
+    steps_per_epoch: int = 0
+    stage: str = "alignment"
+    best_loss: float = float("inf")
+    training_log: list = field(default_factory=list)
+
+    def to_json(self) -> str:
+        return json.dumps(asdict(self), indent=2)
+
+    @classmethod
+    def from_json(cls, text: str) -> "Manifest":
+        return cls(**json.loads(text))
+
+
+def checkpoint_dir_name(epoch: int, step: int) -> str:
+    return f"checkpoint_{epoch:05d}_step_{step:09d}"
+
+
+def save_checkpoint(
+    out_dir: str,
+    state: TrainState,
+    manifest: Manifest,
+    config: Config,
+    model_config: ModelConfig,
+    normalization: NormalizationStats,
+    max_keep: int = 4,
+) -> str:
+    path = osp.join(
+        out_dir, checkpoint_dir_name(manifest.current_epoch, manifest.current_total_step)
+    )
+    os.makedirs(path, exist_ok=True)
+    torch.save(state.state_dict(), osp.join(path, STATE_FILE))
+    with open(osp.join(path, "manifest.json"), "w", encoding="utf-8") as f:
+        f.write(manifest.to_json())
+    with open(osp.join(path, "config.json"), "w", encoding="utf-8") as f:
+        f.write(config.model_dump_json(indent=2))
+    with open(osp.join(path, "model_config.json"), "w", encoding="utf-8") as f:
+        f.write(model_config.model_dump_json(indent=2))
+    normalization.save(osp.join(path, "normalization.json"))
+
+    # prune old checkpoints (keep the newest max_keep)
+    siblings = sorted(
+        d for d in os.listdir(out_dir) if d.startswith("checkpoint_")
+    )
+    for old in siblings[:-max_keep]:
+        shutil.rmtree(osp.join(out_dir, old), ignore_errors=True)
+    return path
+
+
+def load_checkpoint(
+    path: str, state: TrainState
+) -> tuple[TrainState, Manifest, NormalizationStats]:
+    """Restore ``state`` in place from ``path``. The file is read onto the
+    CPU; ``load_state_dict`` moves each tensor where the live state keeps
+    it (AdamW's step counts stay on the CPU, as a fresh AdamW keeps them)."""
+    saved = torch.load(osp.join(path, STATE_FILE), map_location="cpu",
+                       weights_only=True)
+    state.load_state_dict(saved)
+    with open(osp.join(path, "manifest.json"), "r", encoding="utf-8") as f:
+        manifest = Manifest.from_json(f.read())
+    norm = NormalizationStats.load(osp.join(path, "normalization.json"))
+    return state, manifest, norm
+
+
+def find_latest_checkpoint(out_dir: str) -> Optional[str]:
+    if not osp.isdir(out_dir):
+        return None
+    cands = sorted(
+        d for d in os.listdir(out_dir) if d.startswith("checkpoint_")
+    )
+    return osp.join(out_dir, cands[-1]) if cands else None

@@ -6,12 +6,17 @@
   ``training_plan.alignment``;
 * the epoch loop, which after each epoch also trains on the val split and
   then refreshes the CTC label priors;
-* metrics at ``log_interval``;
+* metrics at ``log_interval``; validation (CTC loss without priors and
+  the forced-align confidence) every ``val_interval``; a checkpoint every
+  ``save_interval`` and at the end;
+* resume from a checkpoint: the same stage fast-forwards the sampler by
+  ``manifest.current_step``, another stage (or ``reset_stage``) starts
+  fresh counters;
 * at the end, ``alignment_model.safetensors`` in the JAX package's flat
   layout, so its ``align`` command can load the port's aligner.
 
-Runs eagerly on one device. Checkpoint/resume and alignment validation
-are not ported yet.
+Runs eagerly on one device (the JAX ``n_devices`` is 1 here).
+A failing validation batch raises: the JAX loop logs and skips it.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import logging
 import os
 import os.path as osp
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -35,7 +40,8 @@ from ..models import build_text_aligner
 from ..text import TextCleaner
 from ..utils.device import resolve_device
 from ..utils.params_io import save_text_aligner_safetensors
-from .loss_log import MetricsWriter, broadcast
+from .checkpoint import Manifest, load_checkpoint, save_checkpoint
+from .loss_log import MetricsWriter, broadcast, combine_metrics
 from .normalization import NormalizationStats, compute_stats_streaming
 from .state import TrainState, create_train_state
 from .steps import (
@@ -44,6 +50,7 @@ from .steps import (
     finish_alignment_epoch,
     make_alignment_step,
 )
+from .validate import validate_alignment
 
 logger = logging.getLogger("stylish_tts_torch")
 
@@ -81,8 +88,12 @@ class Trainer:
         self.seed = seed
         self.text_cleaner = TextCleaner(model_config.symbol)
         self.normalization = NormalizationStats()
+        self.manifest = Manifest()
         self.writer = None
         self.losses: List[float] = []  # align_loss of every step, in order
+        self.batches: List[List[str]] = []  # the wav paths of every step, in order
+        # one entry per validation pass: step, batch count, mean metrics
+        self.validations: List[Dict[str, float]] = []
 
     # ---- data ------------------------------------------------------------
 
@@ -139,7 +150,10 @@ class Trainer:
 
     # ---- training --------------------------------------------------------
 
-    def train(self, stage: str) -> TrainState:
+    def train(self, stage: str, checkpoint: Optional[str] = None,
+              reset_stage: bool = False) -> TrainState:
+        """Train ``stage`` from scratch or from ``checkpoint``; a checkpoint
+        of the same stage resumes where it stopped unless ``reset_stage``."""
         if stage not in PORTED_STAGES:
             raise ValueError(
                 f"stage {stage!r} is not ported yet (ported: {PORTED_STAGES})"
@@ -166,10 +180,23 @@ class Trainer:
         logger.info("text_aligner parameters: %s on %s", f"{n_params:,}",
                     self.device)
 
+        skip_batches = 0
+        self.manifest = Manifest(stage=stage)
+        if checkpoint:
+            state, manifest, self.normalization = load_checkpoint(checkpoint, state)
+            if manifest.stage == stage and not reset_stage:
+                self.manifest = manifest
+                skip_batches = manifest.current_step
+                logger.info("resuming %s at epoch %d step %d", stage,
+                            manifest.current_epoch, manifest.current_total_step)
+            else:
+                state.step = 0
+
         self.writer = MetricsWriter(out_dir)
         try:
             state = self.run_alignment(
-                state, train_ds, val_ds, train_bins, val_bins, out_dir
+                state, train_ds, val_ds, train_bins, val_bins, out_dir,
+                skip_batches,
             )
         finally:
             self.writer.close()
@@ -181,7 +208,7 @@ class Trainer:
         return state
 
     def run_alignment(self, state, train_ds, val_ds, train_bins, val_bins,
-                      out_dir):
+                      out_dir, skip_batches=0):
         cfg = self.config
         plan = cfg.training_plan.get_stage("alignment")
         table = BatchSizeTable(
@@ -196,6 +223,7 @@ class Trainer:
 
         sampler = DynamicBatchSampler(train_bins, table, seed=17)
         steps_per_epoch = len(sampler)
+        self.manifest.steps_per_epoch = steps_per_epoch
         stage_steps = max(plan.epochs * steps_per_epoch, 1)
         ctx = StepContext(
             self.mc, cfg.loss_weight.model_dump(), self.normalization,
@@ -204,37 +232,54 @@ class Trainer:
         step_fn = make_alignment_step(ctx)
 
         window: List[Dict[str, object]] = []
-        total_step = 0
         t_start = time.time()
-        for epoch in range(1, plan.epochs + 1):
+        for epoch in range(self.manifest.current_epoch, plan.epochs + 1):
+            self.manifest.current_epoch = epoch
             sampler.set_epoch(epoch)
             loader = PrefetchLoader(
                 train_ds, sampler, self.mc.hop_length, require_pitch=False,
                 device_put=lambda b: batch_to_device(b, self.device),
                 depth=max(cfg.training.data_workers // 2, 2),
             )
-            for i, (_bin, batch, _paths) in enumerate(loader):
+            for i, (_bin, batch, paths) in enumerate(loader):
+                if skip_batches > 0:
+                    skip_batches -= 1
+                    continue
                 window.append(step_fn(state, batch))
-                total_step += 1
+                self.batches.append(paths)
+                self.manifest.current_step = i + 1
+                self.manifest.current_total_step += 1
+                total_step = self.manifest.current_total_step
                 if total_step % cfg.training.log_interval == 0:
                     self._log_window(window, ctx, total_step, epoch,
                                      plan.epochs, i + 1, steps_per_epoch)
+                if total_step % cfg.training.val_interval == 0:
+                    self.validate(state, ctx, val_ds, val_bins, table)
+                if total_step % cfg.training.save_interval == 0:
+                    save_checkpoint(out_dir, state, self.manifest, cfg, self.mc,
+                                    self.normalization)
             # also train on the val split (reference train.py:417-423)
             val_sampler = DynamicBatchSampler(
                 val_bins, table, seed=29, drop_last=False,
             )
             for _bin, idxs in val_sampler:
                 items = [val_ds.load_segment(j) for j in idxs]
-                batch, _ = collate_batch(
+                batch, paths = collate_batch(
                     items, hop_length=self.mc.hop_length, require_pitch=False,
                 )
                 window.append(step_fn(state, batch_to_device(batch, self.device)))
+                self.batches.append(paths)
             state = finish_alignment_epoch(ctx, state)
+            self.manifest.current_step = 1
         if window:
-            self._log_window(window, ctx, total_step, plan.epochs, plan.epochs,
-                             steps_per_epoch, steps_per_epoch)
+            self._log_window(window, ctx, self.manifest.current_total_step,
+                             plan.epochs, plan.epochs, steps_per_epoch,
+                             steps_per_epoch)
         logger.info("stage alignment done: %d steps (%d train-split), %.1f s",
-                    state.step, total_step, time.time() - t_start)
+                    state.step, self.manifest.current_total_step,
+                    time.time() - t_start)
+        save_checkpoint(out_dir, state, self.manifest, cfg, self.mc,
+                        self.normalization)
         return state
 
     def _log_window(self, window, ctx, total_step, epoch, epochs, i,
@@ -250,3 +295,41 @@ class Trainer:
             header=f"Epoch [{epoch}/{epochs}], Step [{i}/{steps_per_epoch}] ",
         )
         self.writer.add_scalar("train/lr", lr, total_step)
+
+    # ---- validation ------------------------------------------------------
+
+    def validate(self, state, ctx, val_ds, val_bins, table) -> Dict[str, float]:
+        """CTC loss and forced-align confidence over the val split, at the
+        stage's planned batch sizes: a bin's full planned batch stays whole,
+        a ragged one is re-chunked to B = 1 (the JAX ``n_devices``). The
+        logged metric is the mean of the batch means. Updates
+        ``manifest.best_loss``."""
+        metrics_acc = []
+        for time_bin, idxs in DynamicBatchSampler(
+            val_bins, table, shuffle=False, drop_last=False,
+        ):
+            if len(idxs) == table.get(time_bin):
+                chunks = [idxs]
+            else:
+                chunks = [[j] for j in idxs]
+            for chunk in chunks:
+                items = [val_ds.load_segment(j) for j in chunk]
+                batch, _ = collate_batch(
+                    items, hop_length=self.mc.hop_length, require_pitch=False,
+                )
+                metrics_acc.append(validate_alignment(
+                    state, ctx, batch_to_device(batch, self.device)))
+        if not metrics_acc:
+            return {}
+        keys = sorted(metrics_acc[0])
+        packed = torch.stack([torch.stack([m[k] for k in keys]) for m in metrics_acc])
+        avg = combine_metrics(
+            [dict(zip(keys, map(float, row))) for row in packed.cpu().numpy()]
+        )
+        step = self.manifest.current_total_step
+        total = broadcast(avg, ctx.weights, self.writer, step, prefix="eval",
+                          header=f"Validation step {step}: ")
+        if total < self.manifest.best_loss:
+            self.manifest.best_loss = total
+        self.validations.append({"step": step, "batches": len(metrics_acc), **avg})
+        return avg

@@ -1,8 +1,9 @@
 """Metrics to the logger and to TensorBoard.
 
 The part of ``stylish_tts_tpu/trainer/loss_log.py`` the alignment stage
-uses: a weighted reporting total, logged and written to a SummaryWriter,
-or to a JSONL metrics file where ``torch.utils.tensorboard`` is missing.
+uses: a weighted reporting total, window means, logged and written to a
+SummaryWriter, or to a JSONL metrics file where
+``torch.utils.tensorboard`` is missing.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from __future__ import annotations
 import json
 import logging
 import os.path as osp
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 logger = logging.getLogger("stylish_tts_torch")
 
@@ -46,6 +47,23 @@ class MetricsWriter:
             self._jsonl.close()
 
 
+def combine_metrics(window: List[Dict[str, float]]) -> Dict[str, float]:
+    """Per-key mean over a window of metric dicts (validation: a mean of
+    batch means)."""
+    totals: Dict[str, float] = {}
+    counts: Dict[str, int] = {}
+    for m in window:
+        for k, v in m.items():
+            totals[k] = totals.get(k, 0.0) + float(v)
+            counts[k] = counts.get(k, 0) + 1
+    return {k: totals[k] / counts[k] for k in totals}
+
+
+def weighted_total(metrics: Dict[str, float], weights: Dict[str, float]) -> float:
+    # "lr" is an observability channel, not a loss term
+    return sum(weights.get(k, 1.0) * v for k, v in metrics.items() if k != "lr")
+
+
 def broadcast(
     metrics: Dict[str, float],
     weights: Dict[str, float],
@@ -55,8 +73,9 @@ def broadcast(
     prefix: str = "train",
     header: str = "",
 ) -> float:
-    """Log ``metrics`` and their weighted total; returns the total."""
-    total = sum(weights.get(k, 1.0) * v for k, v in metrics.items())
+    """Log ``metrics`` and their weighted total under ``prefix`` ("train",
+    or "eval" for validation); returns the total."""
+    total = weighted_total(metrics, weights)
     parts = ", ".join(f"{k}: {v:.3f}" for k, v in metrics.items())
     logger.info("%sloss: %.3f, %s", header, total, parts)
     if writer is not None:

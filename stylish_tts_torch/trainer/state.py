@@ -5,6 +5,8 @@ it is one mutable object that the step updates in place: the aligner
 module holds its parameters, its AdamW holds the moments and step count,
 the label-prior accumulators are device tensors, and a
 ``torch.Generator`` on the device replaces the JAX ``rng`` key.
+``state_dict`` / ``load_state_dict`` carry all of it through a checkpoint
+(``trainer/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +28,29 @@ class TrainState:
     prior_count: torch.Tensor
     generator: torch.Generator
     step: int = 0
+
+    def state_dict(self) -> dict:
+        """Everything a resume needs, as tensors, numbers and containers of
+        them (loadable with ``torch.load(weights_only=True)``)."""
+        return {
+            "aligner": self.aligner.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "log_priors": self.log_priors,
+            "log_priors_sum": self.log_priors_sum,
+            "prior_count": self.prior_count,
+            "generator": self.generator.get_state(),
+            "step": self.step,
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore in place from ``state_dict()``'s output (on any device)."""
+        device = self.log_priors.device
+        self.aligner.load_state_dict(state["aligner"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        for name in ("log_priors", "log_priors_sum", "prior_count"):
+            setattr(self, name, state[name].to(device))
+        self.generator.set_state(state["generator"])
+        self.step = int(state["step"])
 
 
 def create_train_state(aligner: torch.nn.Module, n_classes: int,
