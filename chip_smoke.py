@@ -67,9 +67,27 @@ Phases (any failure exits non-zero):
    acoustic-stage batch collated from the port-made caches with
    ``require_pitch=True``, its soft alignment covering every frame; the
    native loader against scipy on a batch of 69;
-7. print the synthesis and front-end summary lines, the ``kernels`` JSON
-   line (launch counts of the front end's ``train-align``), then the device
-   line last.
+7. the acoustic stage at the full default ``ModelConfig()`` on phase 6's
+   corpus and caches: ``train --stage acoustic`` through the CLI (bf16,
+   the slm term on with the seeded random WavLM, ``probe_batch_max`` 16,
+   B = 8 by the batch plan at 440 frames, 2 epochs = 40 steps,
+   validation every 10 steps with eval wavs, a
+   checkpoint every 2 steps) with deterministic cuDNN, its CTC launch
+   counts zeroed before and read after (0: no Pallas kernel backs this
+   stage); a resume from the oldest kept checkpoint against the
+   uninterrupted run (the same batches, metrics within 1e-2 relative, each
+   module's weights within 0.05 of their move, L2); one fp32 step with the
+   parity switches on the card against the CPU from the same weights (B=2,
+   1 s; metrics 1e-3 relative, each module's weights within 0.1 of the
+   step's move, L2; see ``CARD_CPU_*``); 20
+   bf16 steps on one batch of 16 (metrics finite, lr multipliers in [0.01,
+   4], mel at the last below 0.9 x the first), timed; one step traced
+   (device time by group, launches, busy share, peak memory,
+   ``chiprun_out/profile_acoustic_step.json``) and WavLM's loss forward and
+   backward timed alone for its share of the step;
+8. print the synthesis, front-end and acoustic summary lines, the
+   ``kernels`` JSON line (launch counts of the front end's
+   ``train-align``), then the device line last.
 
 Tolerances: the kernels carry the trellis as float-float pairs and
 normalise gamma per frame (see csrc/ctc.cu), so they are held against the
@@ -1590,6 +1608,418 @@ def phase_front_end(torch, work: Path, card: str):
     return report
 
 
+# ---------------------------------------------------------------- phase 7
+
+# the acoustic stage on the front end's corpus and caches: probe_batch_max
+# 16 plans B = int(16 x 240 / 440) = 8 for the clips' 440-frame bin (the
+# batch planner's memory rule), so 160 train clips give 20 steps per epoch
+ACOUSTIC_EPOCHS = 2
+ACOUSTIC_PROBE_BATCH_MAX = 16
+ACOUSTIC_VAL_INTERVAL = 10
+ACOUSTIC_SAVE_INTERVAL = 2
+ACOUSTIC_B = 16  # the timed batch, one bin of the corpus
+# the resumed run against the uninterrupted one: each metric within 1e-2
+# relative; each module's weights within 0.05 of their move over the
+# resumed span (L2 norms of the differences)
+ACOUSTIC_RESUME_RTOL = 1e-2
+# card against CPU, one fp32 step with the parity switches: metrics rtol
+# 1e-3; each module's updated weights within 0.1 of the step's move (L2),
+# and no element off by more than AdamW can move it (2 x 4 lr). A first
+# AdamW step moves EVERY element by exactly lr x mult x sign(g), so an
+# element whose gradient is below its sum's float32 noise (the attention
+# key biases', whose gradient the softmax's shift invariance makes vanish)
+# flips with odds 1/2 and adds (2 lr)^2: 0.1 admits a quarter percent of a
+# module's elements flipping
+CARD_CPU_METRIC_RTOL = 1e-3
+CARD_CPU_WEIGHT_RTOL = 0.1
+CARD_CPU_MAX_ABS = 2 * 4.0 * 1e-4
+MOVE_STEPS = 20
+MEL_DROP = 0.9  # mel at the last of the 20 steps below 0.9 x the first
+N_ACOUSTIC_TIMED = 5
+# first match wins: cuDNN's implicit-GEMM convs and its layout transposes
+# are convs; cuBLAS / cuBLASLt (nvjet) kernels GEMMs
+ACOUSTIC_GROUPS = (
+    ("AdamW", ("multi_tensor_apply",)),
+    ("convs", ("cudnn", "fprop", "dgrad", "wgrad", "conv", "Conv", "winograd")),
+    ("GEMMs", ("gemm", "Gemm", "nvjet", "cutlass", "cublas", "matmul")),
+    ("copies and fills", ("Memcpy", "Memset", "copy_kernel", "fill")),
+)
+
+
+def acoustic_group(name: str, scope: str | None) -> str:
+    """A kernel's group: the forward scopes (DSP, discriminators, WavLM) by
+    profiler range; the rest, the backward included, by kernel name, with
+    the convs and GEMMs split by precision (fp32 FFMA or bf16)."""
+    base = next((g for g, needles in ACOUSTIC_GROUPS if any(n in name for n in needles)),
+                "elementwise and norms")
+    # cuDNN and cuBLAS name a bf16 kernel's type; cuBLASLt's nvjet names
+    # carry none and count as fp32
+    if base in ("convs", "GEMMs"):
+        low = name.lower()
+        base += " bf16" if ("bf16" in low or "bfloat16" in low) else " fp32"
+    if scope == "wavlm":
+        return "WavLM " + base
+    if scope is not None and base != "AdamW":
+        return scope + (" (fp32 convs)" if base == "convs fp32" else "")
+    return base
+
+
+def acoustic_configs(data: Path, work: Path):
+    """The acoustic stage's YAMLs: every field of ``training_plan.acoustic``
+    written out (a partial plan takes the class defaults); bf16; the slm term
+    at its default 0.2 with the seeded random WavLM."""
+    import yaml
+
+    from stylish_tts_torch.config import ModelConfig
+
+    cfg = work / "acoustic.yml"
+    cfg.write_text(yaml.safe_dump({
+        "dataset": {"path": str(data)},
+        "training": {"log_interval": 5, "val_interval": ACOUSTIC_VAL_INTERVAL,
+                     "save_interval": ACOUSTIC_SAVE_INTERVAL, "mixed_precision": "bf16"},
+        "training_plan": {"acoustic": {"epochs": ACOUSTIC_EPOCHS,
+                                       "probe_batch_max": ACOUSTIC_PROBE_BATCH_MAX,
+                                       "lr": 1e-4}},
+        "loss_weight": {"slm": 0.2},
+        "validation": {"sample_count": 2},
+    }), encoding="utf-8")
+    mc = ModelConfig().model_dump()
+    mc["slm"]["allow_random_fallback"] = True
+    model_cfg = work / "acoustic_model.yml"
+    model_cfg.write_text(yaml.safe_dump(mc), encoding="utf-8")
+    return cfg, model_cfg
+
+
+def acoustic_train(torch, cfg, model_cfg, out, *extra):
+    """``train --stage acoustic`` through the CLI (deterministic cuDNN, so a
+    resume can be held against the uninterrupted run); the CTC counts are
+    zeroed before and read after: no Pallas kernel backs this stage."""
+    import numpy as np
+
+    from stylish_tts_torch.ops import ctc_cuda
+
+    for name in ctc_cuda.LAUNCHES:
+        ctc_cuda.LAUNCHES[name] = 0
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainer, wall = cli(torch, "train", "--stage", "acoustic", "--config", str(cfg),
+                            "--model-config", str(model_cfg), "--out", str(out), *extra)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    launches = dict(ctc_cuda.LAUNCHES)
+    if any(launches.values()):
+        fail(f"the acoustic stage launched a CTC kernel: {launches}")
+    for m in trainer.step_metrics:
+        if not all(np.isfinite(list(m.values()))):
+            fail(f"nonfinite acoustic metric: {m}")
+        mults = [v for k, v in m.items() if k.endswith("_lr_mult")]
+        if len(mults) != 4 or not all(0.01 - 1e-6 <= v <= 4.0 + 1e-6 for v in mults):
+            fail(f"lr multipliers outside [0.01, 4]: {m}")
+    return trainer, wall, launches
+
+
+def acoustic_stage(torch, data, work):
+    """Train, validate and checkpoint through the CLI; then resume from the
+    oldest kept checkpoint into a second directory."""
+    import numpy as np
+
+    cfg, model_cfg = acoustic_configs(data, work)
+    out = work / "acoustic_out"
+    trainer, wall, launches = acoustic_train(torch, cfg, model_cfg, out)
+    steps = trainer.manifest.current_total_step
+    if (steps != ACOUSTIC_EPOCHS * trainer.manifest.steps_per_epoch or steps < 20
+            or len(trainer.step_metrics) != steps):
+        fail(f"acoustic: {steps} steps of {trainer.manifest.steps_per_epoch} per epoch, "
+             f"{len(trainer.step_metrics)} metric rows")
+    batch_size = len(trainer.batches[0])
+    if (len(trainer.validations) != steps // ACOUSTIC_VAL_INTERVAL
+            or not all(np.isfinite(v["mel"]) for v in trainer.validations)):
+        fail(f"acoustic validations: {trainer.validations}")
+    stage_dir = out / "acoustic"
+    samples = sorted((stage_dir / "samples").glob("step_*/*.wav"))
+    if len(samples) != 2 * len(trainer.validations):
+        fail(f"eval samples written: {[str(s) for s in samples]}")
+    names = checkpoint_dirs(stage_dir)
+    if len(names) != MAX_KEEP or names[-1] != f"checkpoint_{ACOUSTIC_EPOCHS:05d}_step_{steps:09d}":
+        fail(f"acoustic checkpoints not pruned to {MAX_KEEP}: {names}")
+    log(f"train --stage acoustic: {steps} steps at B={batch_size}, {wall:.1f} s; "
+        f"validation {[(v['step'], round(v['mel'], 4)) for v in trainer.validations]}; "
+        f"checkpoints {names}; CTC launches {launches}; first/last mel "
+        f"{trainer.step_metrics[0]['mel']:.4f} / {trainer.step_metrics[-1]['mel']:.4f}")
+
+    resumed, r_wall, _ = acoustic_train(torch, cfg, model_cfg, work / "acoustic_resumed",
+                                        "--checkpoint", str(stage_dir / names[0]))
+    n = len(resumed.step_metrics)
+    ref = trainer.step_metrics[-n:]
+    rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+              for a, b in zip(resumed.step_metrics, ref) for k in b)
+    saved = [torch.load(p, map_location="cpu", weights_only=True)["models"] for p in (
+        stage_dir / names[-1] / "state.pt",
+        work / "acoustic_resumed" / "acoustic" / names[-1] / "state.pt",
+        stage_dir / names[0] / "state.pt")]
+    ratios = {}
+    for module in saved[0]:
+        err = torch.sqrt(sum(((saved[0][module][k].float() - saved[1][module][k].float()) ** 2)
+                             .sum() for k in saved[0][module]))
+        move = torch.sqrt(sum(((saved[0][module][k].float() - saved[2][module][k].float()) ** 2)
+                              .sum() for k in saved[0][module]))
+        ratios[module] = float(err / move.clamp_min(1e-30))
+    if (resumed.batches != trainer.batches[-n:] or not 0 < n < steps
+            or rel > ACOUSTIC_RESUME_RTOL or max(ratios.values()) > WEIGHT_SPAN_RTOL):
+        fail(f"acoustic resume from {names[0]}: {n} steps, same batches "
+             f"{resumed.batches == trainer.batches[-n:]}, metric rel err {rel:.3e} "
+             f"(<= {ACOUSTIC_RESUME_RTOL}), weights/move {ratios} (<= {WEIGHT_SPAN_RTOL})")
+    log(f"acoustic resume from {names[0]}: {n} steps in {r_wall:.1f} s; metric rel err "
+        f"{rel:.2e}; weight error / move {ratios}")
+    return trainer, {"wall_s": wall, "steps": steps, "B": batch_size,
+                     "ctc_launches": launches,
+                     "validations": trainer.validations, "checkpoints": names,
+                     "metrics": trainer.step_metrics, "resume_from": names[0],
+                     "resume_steps": n, "resume_wall_s": r_wall,
+                     "resume_metric_max_rel_err": rel,
+                     "resume_weight_err_over_move": ratios}
+
+
+def acoustic_batch(torch, data, b, seconds=None):
+    """``b`` train clips of the corpus's bin, collated as the loader does;
+    cut to ``seconds`` (whole frames, durations rescaled to sum to them)."""
+    import numpy as np
+
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.data.collate import collate_batch
+    from stylish_tts_torch.trainer.steps import Batch
+
+    hop = ModelConfig().hop_length
+    ds = dataset(data, "train", pitch_path="pitch.safetensors",
+                 alignment_path="alignment.safetensors")
+    ds.time_bins()
+    batch, _ = collate_batch([ds.load_segment(i) for i in range(b)], hop_length=hop,
+                             require_pitch=True)
+    if seconds is not None:
+        frames = int(seconds * 24000) // hop // 2 * 2
+        durs = batch.durations.astype(np.float64) * frames / batch.durations.sum(1,
+                                                                                 keepdims=True)
+        durs = np.floor(durs).astype(np.int32)
+        durs[:, 0] += frames - durs.sum(1)
+        batch = Batch(batch.audio_gt[:, : frames * hop], batch.text, batch.text_lengths,
+                      batch.pitch[:, :frames], durs)
+    return batch
+
+
+def acoustic_state(torch, mc, device, seed=0):
+    from stylish_tts_torch.models import build_acoustic_models
+    from stylish_tts_torch.trainer.state import create_acoustic_train_state
+
+    torch.manual_seed(seed)
+    return create_acoustic_train_state(build_acoustic_models(mc), device, seed=seed)
+
+
+def acoustic_card_vs_cpu(torch, data):
+    """One full-width fp32 step (parity switches, an injected broadband
+    excitation, MRD 1, slm on) from the same weights on the card and on the
+    CPU: every metric, and every module's updated weights."""
+    import numpy as np
+
+    from stylish_tts_torch.config import Config, ModelConfig
+    from stylish_tts_torch.models.slm import random_wavlm, wavlm_loss
+    from stylish_tts_torch.trainer.normalization import NormalizationStats
+    from stylish_tts_torch.trainer.steps import StepContext, batch_to_device, make_acoustic_step
+
+    mc = ModelConfig()
+    batch = acoustic_batch(torch, data, 2, seconds=1.0)
+    gen = torch.Generator().manual_seed(3)
+    prior = torch.tanh(0.3 * torch.randn(batch.audio_gt.shape, generator=gen))
+    results = {}
+    for device in ("cpu", "cuda"):
+        state = acoustic_state(torch, mc, device)
+        start = {n: {k: v.cpu().clone() for k, v in m.state_dict().items()}
+                 for n, m in state.models.items()}
+        state.wavlm = random_wavlm(0).to(device).eval().requires_grad_(False)
+        ctx = StepContext(mc, Config().loss_weight.model_dump(), NormalizationStats(),
+                          stage_steps=100, slm_loss_fn=wavlm_loss,
+                          parity_deterministic=True, parity_prior=prior.to(device),
+                          forced_disc_index=1)
+        t0 = time.time()
+        metrics = make_acoustic_step(ctx)(state, batch_to_device(batch, device))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        results[device] = (metrics, {n: {k: v.cpu() for k, v in m.state_dict().items()}
+                                     for n, m in state.models.items()}, time.time() - t0)
+    (m_cpu, w_cpu, cpu_s), (m_card, w_card, _) = results["cpu"], results["cuda"]
+    metric_rel = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12) for k in m_cpu}
+    ratios, worst_abs = {}, 0.0
+    for n in w_cpu:
+        err = sum(float(((w_card[n][k] - r) ** 2).sum()) for k, r in w_cpu[n].items())
+        move = sum(float(((r - start[n][k]) ** 2).sum()) for k, r in w_cpu[n].items())
+        ratios[n] = (err / move) ** 0.5 if move > 0 else (0.0 if err == 0 else float("inf"))
+        worst_abs = max(worst_abs, max(float((w_card[n][k] - r).abs().max())
+                                       for k, r in w_cpu[n].items()))
+    if (max(metric_rel.values()) > CARD_CPU_METRIC_RTOL
+            or max(ratios.values()) > CARD_CPU_WEIGHT_RTOL or worst_abs > CARD_CPU_MAX_ABS
+            or not all(np.isfinite(list(m_card.values())))):
+        fail(f"acoustic step, card vs CPU: metrics rel {metric_rel} (<= "
+             f"{CARD_CPU_METRIC_RTOL}); weights: error / move {ratios} (<= "
+             f"{CARD_CPU_WEIGHT_RTOL}), max abs {worst_abs:.2e} (<= {CARD_CPU_MAX_ABS})")
+    log(f"acoustic step card vs CPU (fp32, B=2, {batch.audio_gt.shape[1]} samples): "
+        f"metrics max rel {max(metric_rel.values()):.2e} "
+        f"({max(metric_rel, key=metric_rel.get)}), weights error / move "
+        f"{ {k: round(v, 5) for k, v in ratios.items()} }, max abs {worst_abs:.2e}; "
+        f"CPU step {cpu_s:.1f} s")
+    return {"metric_rel_err": metric_rel, "weight_err_over_move": ratios,
+            "weight_max_abs_err": worst_abs, "cpu_step_s": cpu_s,
+            "samples": int(batch.audio_gt.shape[1])}
+
+
+def acoustic_moves_and_times(torch, data, card):
+    """20 bf16 steps on one fixed corpus batch of 16 from seeded weights
+    (metrics finite, lr multipliers in [0.01, 4], mel falling by the stated
+    margin), each timed; then the step's device time by kernel group under
+    ``torch.profiler``, its launches, busy share and peak memory, and the
+    WavLM's part (its loss forward and backward alone at the step's shapes)."""
+    import numpy as np
+    from torch.autograd import DeviceType
+
+    from stylish_tts_torch.config import Config, ModelConfig
+    from stylish_tts_torch.dsp import mel as mel_lib
+    from stylish_tts_torch.dsp import multi_spectrogram
+    from stylish_tts_torch.dsp import stft as stft_lib
+    from stylish_tts_torch.models.slm import random_wavlm, wavlm_loss
+    from stylish_tts_torch.trainer.normalization import NormalizationStats
+    from stylish_tts_torch.trainer.steps import StepContext, batch_to_device, make_acoustic_step
+
+    mc = ModelConfig()
+    batch = batch_to_device(acoustic_batch(torch, data, ACOUSTIC_B), "cuda")
+    state = acoustic_state(torch, mc, "cuda")
+    state.wavlm = random_wavlm(0).cuda().eval().requires_grad_(False)
+    ctx = StepContext(mc, Config().loss_weight.model_dump(), NormalizationStats(),
+                      stage_steps=10_000, slm_loss_fn=wavlm_loss, mixed_precision=True)
+    step = make_acoustic_step(ctx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, step_ms = [], []
+    for _ in range(MOVE_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(state, batch)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+    peak = torch.cuda.max_memory_allocated()
+    for m in metrics:
+        mults = [v for k, v in m.items() if k.endswith("_lr_mult")]
+        if not all(np.isfinite(list(m.values()))) or not all(0.01 - 1e-6 <= v <= 4 + 1e-6
+                                                              for v in mults):
+            fail(f"acoustic moves: metrics {m}")
+    mel0, mel1 = metrics[0]["mel"], metrics[-1]["mel"]
+    if not mel1 < MEL_DROP * mel0:
+        fail(f"acoustic moves: mel {mel0:.4f} -> {mel1:.4f}, not below {MEL_DROP} x the first")
+    median_step = statistics.median(step_ms[2:])
+
+    # WavLM alone: the target's forward and the prediction's forward and
+    # backward at the step's audio
+    frames = ctx.norm_mel(batch.audio_gt[:1], ctx.to_mel).shape[-1]
+    audio_t = batch.audio_gt[:, : frames * mc.hop_length]
+    pred = (audio_t * 0.5).detach().requires_grad_(True)
+
+    def slm_call():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss = wavlm_loss(state.wavlm, audio_t, pred)
+        loss.backward()
+        pred.grad = None
+
+    wavlm_ms = median_ms(torch, slm_call, n=N_ACOUSTIC_TIMED, warmup=1, sleep=False)
+
+    # one step traced, forward scopes in profiler ranges
+    wrapped = []
+
+    def scope(obj, attr, name):
+        fn = getattr(obj, attr)
+
+        def wrapper(*args, **kwargs):
+            with torch.profiler.record_function("scope." + name):
+                return fn(*args, **kwargs)
+        setattr(obj, attr, wrapper)
+        wrapped.append((obj, attr, fn))
+
+    for n in ("mrd0", "mrd1", "mrd2", "disc"):
+        scope(state.models[n], "forward", "discriminators")
+    scope(state.wavlm, "forward", "wavlm")
+    scope(multi_spectrogram.MultiSpectrogram, "single", "DSP")
+    scope(mel_lib.MelSpectrogram, "__call__", "DSP")
+    scope(stft_lib, "istft", "DSP")
+    scope(stft_lib, "stft_magnitude_unit_phase", "DSP")
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for obj, attr, fn in reversed(wrapped):
+            setattr(obj, attr, fn)
+
+    def scope_of(evt):
+        while evt is not None:
+            if evt.name.startswith("scope."):
+                return evt.name[len("scope."):]
+            evt = evt.cpu_parent
+        return None
+
+    groups, kernels, launches = {}, {}, 0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CPU:
+            continue
+        sc = scope_of(evt)
+        for k in evt.kernels:
+            ms = k.duration / 1e3
+            g = groups.setdefault(acoustic_group(k.name, sc), {"ms": 0.0, "launches": 0})
+            g["ms"] += ms
+            g["launches"] += 1
+            row = kernels.setdefault(k.name, {"ms": 0.0, "launches": 0})
+            row["ms"] += ms
+            row["launches"] += 1
+            launches += 1
+    device_ms = sum(g["ms"] for g in groups.values())
+    if not launches or device_ms <= 0:
+        fail("the profiler trace of the acoustic step holds no device time")
+    for g in groups.values():
+        g["share_of_device"] = g["ms"] / device_ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:40]
+    profile = {"card": card, "B": ACOUSTIC_B, "frames": int(batch.pitch.shape[1]),
+               "samples": int(batch.audio_gt.shape[1]), "step_ms_median": median_step,
+               "traced_wall_ms": traced_ms, "device_ms": device_ms,
+               "busy_share": device_ms / median_step, "launches": launches,
+               "peak_memory_bytes": peak, "wavlm_ms": wavlm_ms,
+               "wavlm_share": wavlm_ms / median_step, "groups": groups,
+               "top_kernels": [{"name": n, **v} for n, v in top]}
+    OUT.mkdir(exist_ok=True)
+    (OUT / "profile_acoustic_step.json").write_text(json.dumps(profile, indent=1))
+    for name, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms"]):
+        log(f"acoustic step device time: {g['ms']:.3f} ms x{g['launches']} {name}")
+    log(f"acoustic step B={ACOUSTIC_B} F={profile['frames']} bf16: {median_step:.2f} ms "
+        f"(median of {MOVE_STEPS - 2}), device {device_ms:.2f} ms, busy share "
+        f"{device_ms / median_step:.3f}, {launches} launches, peak "
+        f"{peak / 2**30:.2f} GiB; WavLM {wavlm_ms:.2f} ms ({wavlm_ms / median_step:.3f}); "
+        f"mel {mel0:.4f} -> {mel1:.4f} over {MOVE_STEPS} steps")
+    return {"metrics": metrics, "step_ms": step_ms,
+            **{k: v for k, v in profile.items() if k != "top_kernels"}}
+
+
+def phase_acoustic(torch, work: Path, card: str):
+    """The acoustic stage on the front end's corpus and caches (phase 6's
+    directory): train and resume through the CLI, the card against the CPU,
+    training moves, times."""
+    data = work / "data"
+    t0 = time.time()
+    _, report = acoustic_stage(torch, data, work)
+    report["card_vs_cpu"] = acoustic_card_vs_cpu(torch, data)
+    report["moves"] = acoustic_moves_and_times(torch, data, card)
+    report["phase_wall_s"] = time.time() - t0
+    log(f"acoustic phase: {report['phase_wall_s']:.1f} s")
+    return report
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1633,6 +2063,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_front_") as tmp:
         front = phase_front_end(torch, Path(tmp), card)
+        acoustic = phase_acoustic(torch, Path(tmp), card)
     launches = front["train_align"]["launches"]
     if not all(launches.values()):
         fail(f"a CTC kernel of the front end's train-align never launched: {launches}")
@@ -1656,7 +2087,7 @@ def main() -> int:
     report = {"card": card, "main_path": {**main_run, "shape": main_shape},
               "step_ms": step_ms, "step_profile": profile, "checks": checks,
               "timings": timings, "frame_fit": fit, "kernels": kernels,
-              "front_end": front, "synthesis": synthesis,
+              "front_end": front, "synthesis": synthesis, "acoustic": acoustic,
               "wall_s": time.time() - t_start}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
@@ -1694,6 +2125,20 @@ def main() -> int:
         "viterbi_launches": {k: v["launches"] for k, v in vit["viterbi"].items()},
         "align_busy_share": vit["profile"]["busy_share"],
         "loader_ms": front["loader"]}}), flush=True)
+    mv = acoustic["moves"]
+    print(json.dumps({"acoustic": {
+        "card": card, "train_s": acoustic["wall_s"], "train_steps": acoustic["steps"],
+        "ctc_launches": acoustic["ctc_launches"],
+        "validation_mel": [v["mel"] for v in acoustic["validations"]],
+        "resume_metric_max_rel_err": acoustic["resume_metric_max_rel_err"],
+        "resume_weight_err_over_move": max(acoustic["resume_weight_err_over_move"].values()),
+        "card_vs_cpu_metric_max_rel_err": max(acoustic["card_vs_cpu"]["metric_rel_err"].values()),
+        "card_vs_cpu_weight_max_abs_err": acoustic["card_vs_cpu"]["weight_max_abs_err"],
+        "mel_first_last": [mv["metrics"][0]["mel"], mv["metrics"][-1]["mel"]],
+        "step_ms_b16": mv["step_ms_median"], "device_ms": mv["device_ms"],
+        "busy_share": mv["busy_share"], "launches": mv["launches"],
+        "peak_memory_gib": mv["peak_memory_bytes"] / 2**30, "wavlm_share": mv["wavlm_share"],
+        "groups_ms": {g: v["ms"] for g, v in mv["groups"].items()}}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 (training) and ``python -m stylish_tts_torch.cli_tts`` (synthesis).
 
 Counterpart of ``stylish_tts_tpu/cli.py``; ported so far: ``pitch``
-(YIN), ``train-align`` (with ``--checkpoint``), ``align``,
+(YIN), ``train-align`` (with ``--checkpoint``), ``train --stage acoustic``
+(with ``--checkpoint`` and ``--reset-stage``), ``align``,
 ``align-textgrid`` and ``speak``. Every command runs on ``--device cuda``
 unless told ``--device cpu``, and raises where CUDA is missing.
 """
@@ -42,6 +43,35 @@ def train_align(config_path, model_config_path, out_dir, checkpoint, device):
     config, model_config = _load_configs(config_path, model_config_path)
     trainer = Trainer(config, model_config, out_dir, device=device)
     trainer.train("alignment", checkpoint=checkpoint)
+    return trainer
+
+
+@train_cli.command("train")
+@click.option("--config", "config_path", required=True, type=click.Path(exists=True))
+@click.option("--model-config", "model_config_path", type=click.Path(exists=True))
+@click.option("--out", "out_dir", required=True, type=click.Path())
+@click.option("--stage", default="acoustic",
+              type=click.Choice(["acoustic", "textual", "duration"]),
+              help="only 'acoustic' is ported; the others raise")
+@click.option("--checkpoint", default=None, type=click.Path(exists=True),
+              help="acoustic checkpoint directory to resume from")
+@click.option("--reset-stage", is_flag=True, default=False,
+              help="load the checkpoint's weights but restart the stage's counters")
+@click.option("--device", default="cuda", show_default=True,
+              help="torch device; 'cpu' runs on the CPU (float32)")
+def train(config_path, model_config_path, out_dir, stage, checkpoint, reset_stage,
+          device):
+    """Main training, the acoustic stage (the JAX command goes on to textual
+    and duration; they are not ported yet, so the run stops after acoustic).
+    The JAX ``--profile`` flag (a jax.profiler trace) has no counterpart.
+    Returns the Trainer to callers that run the command in-process."""
+    from .trainer.loop import Trainer
+
+    if stage != "acoustic":
+        raise click.ClickException(f"--stage {stage} is not ported yet; use acoustic")
+    config, model_config = _load_configs(config_path, model_config_path)
+    trainer = Trainer(config, model_config, out_dir, device=device)
+    trainer.train(stage, checkpoint=checkpoint, reset_stage=reset_stage)
     return trainer
 
 

@@ -6,6 +6,9 @@ A flax tree arrives as numpy arrays, nested (``{"params": {...}}`` as
 and an inference package's ``params.safetensors`` use). Layout rules:
 
 * conv kernels (K, Cin/groups, Cout) <-> torch (Cout, Cin/groups, K);
+* 2D conv kernels (H, W, Cin/groups, Cout) <-> torch (Cout, Cin/groups, H, W);
+  the spectrally-normalised convs of the style encoder carry their RAW
+  kernel on both sides (each side normalises in its forward);
 * Dense kernels (in, out) <-> torch Linear weights (out, in);
 * LayerNorm and GroupNorm ``scale`` <-> ``weight``; ``embedding`` <->
   ``Embedding.weight``;
@@ -74,6 +77,8 @@ def _leaf(owner: nn.Module, name: str, param: torch.Tensor) -> Tuple[str, str]:
     if name == "weight":
         if isinstance(owner, nn.Conv1d):
             return "kernel", "conv"
+        if isinstance(owner, nn.Conv2d):
+            return "kernel", "conv2d"
         if isinstance(owner, nn.Linear):
             return "kernel", "dense"
         if isinstance(owner, nn.Embedding):
@@ -107,10 +112,13 @@ def flax_layout(module: nn.Module) -> Dict[str, Tuple[str, str]]:
     return out
 
 
-def _relayout(x: np.ndarray, kind: str) -> np.ndarray:
-    """flax <-> torch layout of one leaf; each rule is its own inverse."""
+def _relayout(x: np.ndarray, kind: str, to_torch: bool) -> np.ndarray:
+    """flax <-> torch layout of one leaf; each rule but conv2d's is its own
+    inverse."""
     x = np.asarray(x, dtype=np.float32)
-    if kind == "conv":
+    if kind == "conv2d":
+        x = x.transpose(3, 2, 0, 1) if to_torch else x.transpose(2, 3, 1, 0)
+    elif kind == "conv":
         x = x.transpose(2, 1, 0)
     elif kind == "dense":
         x = x.T
@@ -128,7 +136,7 @@ def module_from_jax(module: nn.Module, params: Mapping) -> Dict[str, torch.Tenso
         if path not in flat:
             missing.append(path)
             continue
-        sd[key] = torch.from_numpy(_relayout(flat.pop(path), kind))
+        sd[key] = torch.from_numpy(_relayout(flat.pop(path), kind, to_torch=True))
     if missing or flat:
         raise KeyError(f"{type(module).__name__}: flax leaves missing {sorted(missing)}, "
                        f"unmapped {sorted(flat)}")
@@ -143,7 +151,8 @@ def module_to_jax_flat(module: nn.Module,
     sd = dict(module.state_dict() if state_dict is None else state_dict)
     flat = {}
     for key, (path, kind) in flax_layout(module).items():
-        flat[f"params/{path}"] = _relayout(sd.pop(key).detach().cpu().numpy(), kind)
+        flat[f"params/{path}"] = _relayout(sd.pop(key).detach().cpu().numpy(), kind,
+                                           to_torch=False)
     if sd:
         raise KeyError(f"{type(module).__name__}: unmapped weights {sorted(sd)}")
     return flat

@@ -12,7 +12,7 @@ import functools
 import numpy as np
 import torch
 
-from .stft import stft
+from .stft import fp32_island, stft
 
 
 def _hz_to_mel(f):
@@ -69,6 +69,7 @@ class MelSpectrogram:
         self._fb = torch.from_numpy(mel_filterbank(n_mels, n_fft, sample_rate))
         self._fb_on = {}  # device -> filterbank copy
 
+    @fp32_island
     def __call__(self, audio: torch.Tensor) -> torch.Tensor:
         real, imag = stft(audio, self.n_fft, self.hop_length, self.win_length)
         power_spec = real * real + imag * imag

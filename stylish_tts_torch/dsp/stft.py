@@ -18,6 +18,11 @@ with the same numerics rather than ``torch.stft``'s:
 
 Autograd through ``unfold`` + matmul gives the gradient; the JAX
 package's custom VJP existed only for the TPU's transposed conv.
+
+Every transform is a float32 island: ``fp32_island`` switches autocast
+off inside it, so under bf16 mixed precision the DFT matmuls still run
+(and return) float32, as the JAX package's ``preferred_element_type`` /
+``Precision.HIGHEST`` sites do.
 """
 
 from __future__ import annotations
@@ -27,6 +32,18 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+
+def fp32_island(fn):
+    """Run ``fn`` with autocast off (CUDA and CPU), so that its matmuls and
+    convs compute in the float32 of their inputs."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with torch.autocast("cuda", enabled=False), torch.autocast("cpu", enabled=False):
+            return fn(*args, **kwargs)
+
+    return wrapped
 
 
 def hann_window_padded(win_length: int, n_fft: int) -> torch.Tensor:
@@ -99,6 +116,7 @@ def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
                   kernel_size=(1, n_fft), stride=(1, hop))[:, 0, 0, :]
 
 
+@fp32_island
 def stft(audio: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
          center: bool = True, pad_mode: str = "reflect"):
     """audio (B, T) -> (real, imag), each (B, freq_bins, frames).
@@ -131,6 +149,7 @@ def stft_magnitude_unit_phase(audio: torch.Tensor, n_fft: int, hop_length: int,
     return magnitude, real / magnitude, imag / magnitude
 
 
+@fp32_island
 def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int,
           win_length: int, center: bool = True, length: int | None = None,
           normalize_window: bool = True, uniform_scale: bool = False) -> torch.Tensor:

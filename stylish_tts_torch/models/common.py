@@ -40,6 +40,30 @@ def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return x + (1.0 / alpha) * torch.square(torch.sin(alpha * x))
 
 
+def spectral_normalize(weight: torch.Tensor, n_iter: int = 3) -> torch.Tensor:
+    """Stateless spectral normalization of a conv or dense weight (the JAX
+    ``spectral_normalize``): 3 power iterations from the normalised ones
+    vector over the kernel flattened as flax lays it out, (..., in, out) ->
+    (-1, out); sigma is a constant of the backward pass (stop-gradient).
+
+    Not ``torch.nn.utils.spectral_norm``, which keeps a random, stateful
+    ``u`` across calls and so computes another function."""
+    with torch.no_grad():
+        if weight.dim() > 2:  # torch (out, in, *k) -> flax (*k, in, out)
+            w = weight.permute(*range(2, weight.dim()), 1, 0)
+        else:  # nn.Linear (out, in) -> flax (in, out)
+            w = weight.t()
+        w = w.reshape(-1, w.shape[-1])
+        u = torch.ones(w.shape[0], dtype=w.dtype, device=w.device) / math.sqrt(w.shape[0])
+        for _ in range(n_iter):
+            v = w.t() @ u
+            v = v / (torch.linalg.vector_norm(v) + 1e-12)
+            u = w @ v
+            u = u / (torch.linalg.vector_norm(u) + 1e-12)
+        sigma = torch.clamp_min(u @ (w @ v), 1e-12)
+    return weight / sigma
+
+
 def channel_param(channels: int, value: float) -> nn.Parameter:
     """A (1, C, 1) per-channel parameter (flax keeps it as (1, 1, C))."""
     return nn.Parameter(torch.full((1, channels, 1), value))
@@ -52,9 +76,10 @@ class Conv1d(nn.Conv1d):
     FLAX_WRAP = "Conv_0"
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 dilation: int = 1, groups: int = 1, bias: bool = True):
+                 dilation: int = 1, groups: int = 1, bias: bool = True,
+                 stride: int = 1):
         super().__init__(
-            in_channels, out_channels, kernel_size, dilation=dilation,
+            in_channels, out_channels, kernel_size, stride=stride, dilation=dilation,
             padding=get_padding(kernel_size, dilation), groups=groups, bias=bias,
         )
 
@@ -173,7 +198,8 @@ class GRN(nn.Module):
 
 
 class AdaptiveDecoderBlock(nn.Module):
-    """AdaIN residual conv block (eval: dropout is the identity)."""
+    """AdaIN residual conv block. Its dropout rate is 0 wherever the ported
+    paths build it (the JAX default), so it is the identity in training too."""
 
     def __init__(self, dim_in: int, dim_out: int, style_dim: int,
                  kernel_size: int = 3):
@@ -229,5 +255,18 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     if not training or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+    # float32 draws whatever x's dtype (a bf16 uniform would move the rate)
+    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: torch.Generator | None) -> torch.Tensor:
+    """Stochastic depth over the batch axis (the JAX ``DropPath``): keep each
+    row with probability 1 - rate, scaled by 1/(1-rate)."""
+    if not training or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    u = torch.rand(shape, generator=generator, device=x.device, dtype=torch.float32)
+    return x * (u < keep).to(x.dtype) / keep

@@ -3,8 +3,9 @@
 Counterpart of ``stylish_tts_tpu/models/convnext.py``
 (``GeneratorConvNeXtBlock``, ``AdaptiveConvNeXtBlock``): depthwise conv
 (k=7) -> AdaptiveLayerNorm (epsilon 1e-6) -> pointwise expand ->
-activation -> GRN -> pointwise contract, residual. ``DropPath`` is the
-identity at inference and is not ported.
+activation -> GRN -> pointwise contract -> ``drop_path`` (rate
+``dropout``, 0 by default as in JAX; active in ``train()`` mode with a
+generator), residual.
 """
 
 from __future__ import annotations
@@ -13,14 +14,24 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import GRN, AdaptiveLayerNorm, Conv1d, Pointwise, channel_param, snake
+from .common import (
+    GRN,
+    AdaptiveLayerNorm,
+    Conv1d,
+    Pointwise,
+    channel_param,
+    drop_path,
+    snake,
+)
 
 
 class _ConvNeXtBlock(nn.Module):
     FLAX_NAMES = {"grn": "GRN_0"}
 
-    def __init__(self, dim: int, intermediate_dim: int, style_dim: int):
+    def __init__(self, dim: int, intermediate_dim: int, style_dim: int,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.dwconv = Conv1d(dim, dim, 7, groups=dim)
         self.norm = AdaptiveLayerNorm(dim, style_dim, eps=1e-6)
         self.pwconv1 = Pointwise(dim, intermediate_dim)
@@ -30,10 +41,12 @@ class _ConvNeXtBlock(nn.Module):
     def activation(self, x: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
-    def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, style: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         h = self.norm(self.dwconv(x), style)
         h = self.activation(self.pwconv1(h))
-        return x + self.pwconv2(self.grn(h))
+        h = drop_path(self.pwconv2(self.grn(h)), self.dropout, self.training, generator)
+        return x + h
 
 
 class GeneratorConvNeXtBlock(_ConvNeXtBlock):

@@ -1,0 +1,114 @@
+"""GAN discriminators of the acoustic stage.
+
+Counterpart of ``stylish_tts_tpu/models/discriminators.py``
+(``SpecDiscriminator``, ``ContextFreeBlock``,
+``ContextFreeDiscriminator``):
+
+* ``SpecDiscriminator`` (the MRD): 5 Conv2d layers over one |FFT|
+  resolution, (B, 1, freq, frames), with explicit (1,1)/(4,4) pads as the
+  JAX module sets them, each with a 1-channel score head;
+* ``ContextFreeDiscriminator`` (the waveform ``disc``): raw audio cut
+  into 1024-sample windows at hop 512 -> strided conv stack, SE channel
+  attention, temporal and spectral branches, fusion, two linear layers.
+
+Each returns the list of per-layer score tensors (B, N) that the LSGAN /
+TPRLS losses take. ``PeriodDiscriminator``, ``MultiPeriodDiscriminator``
+(not built by ``build_model``) and ``PitchDiscriminator`` (textual and
+duration stages) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .common import Conv1d, Norm1d
+
+# (kernel (freq, frames), stride, padding) of the MRD's five convs
+SPEC_LAYERS = (
+    ((3, 9), (1, 1), (1, 4)),
+    ((3, 9), (1, 2), (1, 4)),
+    ((3, 9), (1, 2), (1, 4)),
+    ((3, 9), (1, 2), (1, 4)),
+    ((3, 3), (1, 1), (1, 1)),
+)
+
+
+class SpecDiscriminator(nn.Module):
+    """(B, 1, freq, frames) |FFT| magnitude -> 5 score tensors."""
+
+    def __init__(self, channels: int = 32):
+        super().__init__()
+        in_ch = 1
+        for i, (kernel, stride, pad) in enumerate(SPEC_LAYERS):
+            self.add_module(f"conv_{i}", nn.Conv2d(in_ch, channels, kernel, stride, pad))
+            self.add_module(f"out_{i}", nn.Conv2d(channels, 1, 3, 1, 1))
+            in_ch = channels
+
+    def forward(self, y: torch.Tensor) -> List[torch.Tensor]:
+        x = y
+        results = []
+        for i in range(len(SPEC_LAYERS)):
+            x = F.leaky_relu(getattr(self, f"conv_{i}")(x), 0.1)
+            out = getattr(self, f"out_{i}")(x)
+            results.append(out.reshape(out.shape[0], -1))
+        return results
+
+
+class ContextFreeBlock(nn.Module):
+    """Conv1d (pad k // 2) -> Norm1d (GroupNorm(1) with scale and bias, or
+    the frozen affine norm) -> exact GELU, over (N, C, T)."""
+
+    def __init__(self, dim_in: int, dim_out: int, kernel: int, stride: int = 1,
+                 groups: int = 1, bias: bool = False, norm_mode: str = "group"):
+        super().__init__()
+        self.conv = Conv1d(dim_in, dim_out, kernel, groups=groups, bias=bias,
+                           stride=stride)
+        self.norm = Norm1d(dim_out, mode=norm_mode, use_scale_bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(self.norm(self.conv(x)), approximate="none")
+
+
+class ContextFreeDiscriminator(nn.Module):
+    """Raw audio (B, T) -> one score tensor over 1024-sample windows."""
+
+    WIN, STEP = 1024, 512
+
+    def __init__(self, dim: int = 64, norm_mode: str = "group"):
+        super().__init__()
+        d, nm = dim, norm_mode
+        self.conv0 = ContextFreeBlock(1, d, 11, stride=4, norm_mode=nm)
+        self.conv1 = ContextFreeBlock(d, d * 2, 11, stride=4, norm_mode=nm)
+        self.conv2 = ContextFreeBlock(d * 2, d * 4, 7, stride=2, norm_mode=nm)
+        self.conv3 = ContextFreeBlock(d * 4, d * 4, 5, stride=2, norm_mode=nm)
+        self.attn_fc = nn.Linear(d * 4, d * 4)
+        self.t0 = ContextFreeBlock(d * 4, d * 4, 7, groups=8, bias=True, norm_mode=nm)
+        self.t1 = ContextFreeBlock(d * 4, d * 4, 3, groups=8, bias=True, norm_mode=nm)
+        self.s0 = ContextFreeBlock(d * 4, d * 12, 1, groups=8, bias=True, norm_mode=nm)
+        self.s1 = ContextFreeBlock(d * 12, d * 4, 1, groups=8, bias=True, norm_mode=nm)
+        self.fusion = ContextFreeBlock(d * 8, d * 4, 1, bias=True, norm_mode=nm)
+        self.last0 = nn.Linear(d * 4, d * 8)
+        self.last1 = nn.Linear(d * 8, 1)
+
+    def forward(self, audio: torch.Tensor) -> List[torch.Tensor]:
+        b, t = audio.shape
+        if t < self.WIN:  # the JAX gather clamps past the end: edge samples
+            audio = F.pad(audio[:, None], (0, self.WIN - t), mode="replicate")[:, 0]
+        n_win = max((t - self.WIN) // self.STEP + 1, 1)
+        # overlapping windows -> (B * n_win, 1, WIN)
+        x = audio[:, : (n_win - 1) * self.STEP + self.WIN].unfold(-1, self.WIN, self.STEP)
+        x = x.reshape(b * n_win, 1, self.WIN)
+        for name in ("conv0", "conv1", "conv2", "conv3"):
+            x = getattr(self, name)(x)
+        # SE attention over channels
+        attn = self.attn_fc(x.mean(dim=2))
+        x = x * torch.sigmoid(attn)[:, :, None]
+        temporal = self.t1(self.t0(x))
+        spectral = self.s1(self.s0(x))
+        x = self.fusion(torch.cat([temporal, spectral], dim=1))
+        x = self.last1(torch.relu(self.last0(x.transpose(1, 2))))  # (N, T', 1)
+        return [x.reshape(b, -1)]

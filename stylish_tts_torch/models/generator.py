@@ -14,9 +14,13 @@ parameter layout):
 
 The sine source draws its initial phases and noise from one
 ``torch.Generator`` per batch row (so a row's audio does not depend on the
-batch around it), or from the global generator when given none;
+batch around it; synthesis), from one generator for the whole batch
+(training), or from the global generator when given none;
 ``deterministic_prior`` zeroes both, and ``prior`` injects a precomputed
-excitation (no two frameworks share an RNG stream).
+excitation (no two frameworks share an RNG stream). The excitation is a
+constant of the backward pass (stop-gradient, as in JAX), and the head's
+atan2, exp and iSTFT run in float32 under mixed precision. In ``train()``
+mode the conformer's dropout (0.2) draws from ``dropout_generator``.
 Its phase is a float32 cumulative sum over frames times 2*pi*hop, which
 reaches ~1.7e5 rad at 1000 frames, where one float32 ulp is 0.016 rad:
 two implementations that sum in another order differ by that much.
@@ -25,7 +29,7 @@ two implementations that sum in another order differ by that much.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -38,13 +42,14 @@ from .conformer import Conformer
 from .convnext import GeneratorConvNeXtBlock
 
 
-SourceGenerator = Optional[Sequence[torch.Generator]]
+SourceGenerator = Optional[Union[torch.Generator, Sequence[torch.Generator]]]
 
 
 def _draw(fn, shape, generator: SourceGenerator, device) -> torch.Tensor:
-    """``fn(shape)`` row by row, one generator per row (or the global one)."""
-    if generator is None:
-        return fn(shape, device=device)
+    """``fn(shape)`` row by row, one generator per row; or from one
+    generator (or the global one) for the whole batch."""
+    if generator is None or isinstance(generator, torch.Generator):
+        return fn(shape, generator=generator, device=device)
     return torch.stack([fn(shape[1:], generator=g, device=device) for g in generator])
 
 
@@ -158,6 +163,7 @@ class Generator(nn.Module):
         audio (B, frames * hop) before the tanh."""
         if prior is None:
             prior = self.source(pitch * voiced, generator, deterministic_prior)
+        prior = prior.detach()
         end = self.start_fft + self.hidden_dim
         har_mag, har_x, har_y = stft_lib.stft_magnitude_unit_phase(
             prior, self.head_fft, self.head_hop, self.head_fft, center=True,
@@ -182,12 +188,13 @@ class Generator(nn.Module):
         for i in range(self.conv_layers):
             phase = getattr(self, f"phase_convnext_{i}")(phase, style)
         phase = self.phase_final_norm(phase)
-        phase = torch.atan2(self.phase_imag_conv(phase), self.phase_real_conv(phase))
+        phase = torch.atan2(self.phase_imag_conv(phase).float(),
+                            self.phase_real_conv(phase).float())
 
         # replicate-pad one trailing frame (matches the stripped prior frame)
         logamp = torch.cat([logamp, logamp[:, :, -1:]], dim=2)
         phase = torch.cat([phase, phase[:, :, -1:]], dim=2)
-        spec = torch.exp(torch.clamp(logamp, -35.0, 35.0))
+        spec = torch.exp(torch.clamp(logamp.float(), -35.0, 35.0))
         # the band fills bins [start, end) of n_fft/2 + 1; the rest is zero
         pad = (0, 0, self.start_fft, self.head_fft // 2 + 1 - end)
         real = F.pad(spec * torch.cos(phase), pad)
@@ -209,7 +216,8 @@ class MultiGenerator(nn.Module):
         self.amp_input_conv = Conv1d(in_dim, hidden_dim, k)
         self.amp_norm = ChannelLayerNorm(hidden_dim)
         self.amp_conformer = Conformer(hidden_dim, config.conformer_layers, style_dim,
-                                       norm_mode=norm_mode or config.norm_mode)
+                                       norm_mode=norm_mode or config.norm_mode,
+                                       dropout=0.2)
         self.basegen = Generator(
             style_dim=style_dim, n_fft=n_fft, hop_length=hop_length,
             sample_rate=sample_rate, scale=8, scalehop=75, start_fft=0,
@@ -220,9 +228,10 @@ class MultiGenerator(nn.Module):
     def forward(self, *, mel: torch.Tensor, style: torch.Tensor, pitch: torch.Tensor,
                 voiced: torch.Tensor, generator: SourceGenerator = None,
                 prior: torch.Tensor | None = None,
-                deterministic_prior: bool = False) -> DecoderPrediction:
+                deterministic_prior: bool = False,
+                dropout_generator: torch.Generator | None = None) -> DecoderPrediction:
         x = self.amp_norm(self.amp_input_conv(mel))
-        x = self.amp_conformer(x, style)
+        x = self.amp_conformer(x, style, generator=dropout_generator)
         audio = self.basegen(x, style, pitch, voiced, generator=generator, prior=prior,
                              deterministic_prior=deterministic_prior)
         return DecoderPrediction(audio=torch.tanh(audio))

@@ -4,6 +4,11 @@ Counterpart of ``stylish_tts_tpu/models/speech_predictor.py`` (the
 FreeGAN generator; ``ringformer`` is not ported yet): the text encoding is
 projected to frame rate through the soft alignment, decoded with the
 prosody curves, and vocoded.
+
+In ``train()`` mode (the acoustic stage) ``dropout_generator`` feeds the
+text encoder's and the conformer's dropout, and ``generator`` the
+decoder's box smoothing and the sine source, as the JAX ``rngs`` /
+``rng`` pair does.
 """
 
 from __future__ import annotations
@@ -37,12 +42,15 @@ class SpeechPredictor(nn.Module):
                 denormal_pitch: torch.Tensor, *,
                 generator: SourceGenerator = None,
                 prior: torch.Tensor | None = None,
-                deterministic_prior: bool = False) -> DecoderPrediction:
+                deterministic_prior: bool = False,
+                dropout_generator: torch.Generator | None = None) -> DecoderPrediction:
         """texts (B, T_text); alignment (B, T_text, T_frames); curves
         (B, T_frames); style (B, style_dim) -> audio (B, T_frames * hop)."""
-        text_encoding, _, _ = self.text_encoder(texts, text_lengths)
+        text_encoding, _, _ = self.text_encoder(texts, text_lengths, dropout_generator)
         asr = torch.bmm(text_encoding, alignment)  # (B, inter_dim, T_frames)
-        mel = self.decoder(asr, pitch, energy, style, voiced)
+        smooth = generator if isinstance(generator, torch.Generator) else None
+        mel = self.decoder(asr, pitch, energy, style, voiced, generator=smooth)
         return self.generator(mel=mel, style=style, pitch=denormal_pitch, voiced=voiced,
                               generator=generator, prior=prior,
-                              deterministic_prior=deterministic_prior)
+                              deterministic_prior=deterministic_prior,
+                              dropout_generator=dropout_generator)

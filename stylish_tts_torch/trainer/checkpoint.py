@@ -3,7 +3,8 @@
 Directory naming ``checkpoint_{epoch:05d}_step_{step:09d}`` and the JSON
 sidecars (``manifest.json``, ``config.json``, ``model_config.json``,
 ``normalization.json``) are the JAX package's. The tensor state is the
-port's own: ``state.pt``, ``TrainState.state_dict()`` written with
+port's own: ``state.pt``, the stage state's ``state_dict()`` (``TrainState``
+for alignment, ``AcousticTrainState`` for acoustic) written with
 ``torch.save`` and read back with ``weights_only=True`` (the JAX package
 writes an orbax tree, which the port does not read). Resume semantics
 live in ``trainer/loop.py``: same stage -> fast-forward the sampler by
@@ -23,7 +24,7 @@ import torch
 
 from ..config import Config, ModelConfig
 from .normalization import NormalizationStats
-from .state import TrainState
+from .state import AcousticTrainState, TrainState
 
 STATE_FILE = "state.pt"
 
@@ -54,7 +55,7 @@ def checkpoint_dir_name(epoch: int, step: int) -> str:
 
 def save_checkpoint(
     out_dir: str,
-    state: TrainState,
+    state: TrainState | AcousticTrainState,
     manifest: Manifest,
     config: Config,
     model_config: ModelConfig,
@@ -84,18 +85,22 @@ def save_checkpoint(
 
 
 def load_checkpoint(
-    path: str, state: TrainState
-) -> tuple[TrainState, Manifest, NormalizationStats]:
+    path: str, state: TrainState | AcousticTrainState
+) -> tuple:
     """Restore ``state`` in place from ``path``. The file is read onto the
     CPU; ``load_state_dict`` moves each tensor where the live state keeps
     it (AdamW's step counts stay on the CPU, as a fresh AdamW keeps them)."""
     saved = torch.load(osp.join(path, STATE_FILE), map_location="cpu",
                        weights_only=True)
     state.load_state_dict(saved)
-    with open(osp.join(path, "manifest.json"), "r", encoding="utf-8") as f:
-        manifest = Manifest.from_json(f.read())
+    manifest = read_manifest(path)
     norm = NormalizationStats.load(osp.join(path, "normalization.json"))
     return state, manifest, norm
+
+
+def read_manifest(path: str) -> Manifest:
+    with open(osp.join(path, "manifest.json"), "r", encoding="utf-8") as f:
+        return Manifest.from_json(f.read())
 
 
 def find_latest_checkpoint(out_dir: str) -> Optional[str]:

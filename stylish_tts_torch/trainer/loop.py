@@ -1,4 +1,5 @@
-"""Training orchestration: the alignment path of ``stylish_tts_tpu/trainer/loop.py``.
+"""Training orchestration: the alignment and acoustic paths of
+``stylish_tts_tpu/trainer/loop.py``.
 
 * dataset lists, duration bins and normalization stats computed once and
   persisted (``normalization.json``);
@@ -15,12 +16,25 @@
 * at the end, ``alignment_model.safetensors`` in the JAX package's flat
   layout, so its ``align`` command can load the port's aligner.
 
+The acoustic stage (``train --stage acoustic``): the same bins, plan
+(``training_plan.acoustic``: ``probe_batch_max`` 16, lr 1e-4, cosine over
+the stage) and normalization; the frozen WavLM when ``loss_weight.slm`` >
+0 (a local checkpoint, or the seeded random init under
+``model.slm.allow_random_fallback``); batches with pitch and alignments;
+metrics moved to the host once per ``log_interval``; validation (mel
+spectral convergence) every ``val_interval`` with the eval samples'
+predicted audio written as wav files; checkpoints every ``save_interval``
+and at the end; same-stage resume. The JAX trainer then advances to
+``textual``; the port stops there with a log line, since the textual stage
+is not ported yet.
+
 Runs eagerly on one device (the JAX ``n_devices`` is 1 here).
 A failing validation batch raises: the JAX loop logs and skips it.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import os
 import os.path as osp
@@ -36,25 +50,36 @@ from ..data.dataset import FilePathDataset
 from ..data.loader import PrefetchLoader
 from ..data.sampler import BatchSizeTable, DynamicBatchSampler
 from ..dsp.mel import MelSpectrogram
-from ..models import build_text_aligner
+from ..models import build_acoustic_models, build_text_aligner
+from ..models.slm import load_wavlm, wavlm_loss
 from ..text import TextCleaner
 from ..utils.device import resolve_device
 from ..utils.params_io import save_text_aligner_safetensors
-from .checkpoint import Manifest, load_checkpoint, save_checkpoint
+from .checkpoint import Manifest, load_checkpoint, read_manifest, save_checkpoint
 from .loss_log import MetricsWriter, broadcast, combine_metrics
 from .normalization import NormalizationStats, compute_stats_streaming
-from .state import TrainState, create_train_state
+from .state import create_acoustic_train_state, create_train_state
 from .steps import (
     StepContext,
     batch_to_device,
     finish_alignment_epoch,
+    make_acoustic_step,
     make_alignment_step,
 )
-from .validate import validate_alignment
+from .validate import validate_acoustic, validate_alignment
 
 logger = logging.getLogger("stylish_tts_torch")
 
-PORTED_STAGES = ("alignment",)
+PORTED_STAGES = ("alignment", "acoustic")
+NEXT_STAGE = {"acoustic": "textual", "textual": "duration"}
+
+
+def select_validation_samples(paths: List[str], count: int, force: List[str]) -> List[str]:
+    """Deterministic selection by blake2b digest, forced samples first."""
+    chosen = [p for p in force if p in paths]
+    rest = sorted((p for p in paths if p not in chosen),
+                  key=lambda p: hashlib.blake2b(p.encode()).hexdigest())
+    return (chosen + rest)[:count]
 
 
 def setup_stage_logging(out_dir: str) -> None:
@@ -91,6 +116,8 @@ class Trainer:
         self.manifest = Manifest()
         self.writer = None
         self.losses: List[float] = []  # align_loss of every step, in order
+        # the acoustic stage's host metrics of every step, in order
+        self.step_metrics: List[Dict[str, float]] = []
         self.batches: List[List[str]] = []  # the wav paths of every step, in order
         # one entry per validation pass: step, batch count, mean metrics
         self.validations: List[Dict[str, float]] = []
@@ -151,9 +178,10 @@ class Trainer:
     # ---- training --------------------------------------------------------
 
     def train(self, stage: str, checkpoint: Optional[str] = None,
-              reset_stage: bool = False) -> TrainState:
+              reset_stage: bool = False):
         """Train ``stage`` from scratch or from ``checkpoint``; a checkpoint
-        of the same stage resumes where it stopped unless ``reset_stage``."""
+        of the same stage resumes where it stopped unless ``reset_stage``.
+        Returns the stage's state (``TrainState`` or ``AcousticTrainState``)."""
         if stage not in PORTED_STAGES:
             raise ValueError(
                 f"stage {stage!r} is not ported yet (ported: {PORTED_STAGES})"
@@ -172,17 +200,28 @@ class Trainer:
                 f.write(model_dump.model_dump_json(indent=2))
 
         torch.manual_seed(self.seed)  # parameter init
-        state = create_train_state(
-            build_text_aligner(self.mc), self.mc.text_encoder.tokens + 1,
-            self.device, seed=self.seed,
-        )
-        n_params = sum(p.numel() for p in state.aligner.parameters())
-        logger.info("text_aligner parameters: %s on %s", f"{n_params:,}",
-                    self.device)
+        if stage == "alignment":
+            state = create_train_state(
+                build_text_aligner(self.mc), self.mc.text_encoder.tokens + 1,
+                self.device, seed=self.seed,
+            )
+            models = {"text_aligner": state.aligner}
+        else:
+            state = create_acoustic_train_state(build_acoustic_models(self.mc),
+                                                self.device, seed=self.seed)
+            models = state.models
+        n_params = {k: f"{sum(p.numel() for p in m.parameters()):,}"
+                    for k, m in models.items()}
+        logger.info("parameters: %s on %s", n_params, self.device)
 
         skip_batches = 0
         self.manifest = Manifest(stage=stage)
         if checkpoint:
+            if stage == "acoustic" and read_manifest(checkpoint).stage != stage:
+                raise ValueError(
+                    f"{checkpoint} is not an acoustic checkpoint; the port's "
+                    "acoustic state holds only the acoustic stage's modules"
+                )
             state, manifest, self.normalization = load_checkpoint(checkpoint, state)
             if manifest.stage == stage and not reset_stage:
                 self.manifest = manifest
@@ -191,35 +230,33 @@ class Trainer:
                             manifest.current_epoch, manifest.current_total_step)
             else:
                 state.step = 0
+        if stage == "acoustic" and self.config.loss_weight.slm > 0:
+            state.wavlm = load_wavlm(self.mc.slm.model,
+                                     self.mc.slm.allow_random_fallback, self.device)
 
+        run = self.run_alignment if stage == "alignment" else self.run_acoustic
         self.writer = MetricsWriter(out_dir)
         try:
-            state = self.run_alignment(
-                state, train_ds, val_ds, train_bins, val_bins, out_dir,
-                skip_batches,
-            )
+            state = run(state, train_ds, val_ds, train_bins, val_bins, out_dir,
+                        skip_batches)
         finally:
             self.writer.close()
-        save_text_aligner_safetensors(
-            self.data_path(self.config.dataset.alignment_model_path),
-            state.aligner,
-        )
-        logger.info("saved alignment model")
+        if stage == "alignment":
+            save_text_aligner_safetensors(
+                self.data_path(self.config.dataset.alignment_model_path),
+                state.aligner,
+            )
+            logger.info("saved alignment model")
+        else:
+            logger.info("stage acoustic done; the JAX trainer goes on to %r, which "
+                        "is not ported yet: stopping here", NEXT_STAGE[stage])
         return state
 
     def run_alignment(self, state, train_ds, val_ds, train_bins, val_bins,
                       out_dir, skip_batches=0):
         cfg = self.config
         plan = cfg.training_plan.get_stage("alignment")
-        table = BatchSizeTable(
-            path=osp.join(out_dir, "alignment_batch_sizes.json"),
-            probe_batch_max=plan.probe_batch_max,
-        )
-        table.plan(list(train_bins.keys()))
-        # tiny datasets would otherwise yield zero full batches (drop_last)
-        for b in list(table.sizes.keys()):
-            table.sizes[b] = max(min(table.sizes[b], len(train_bins.get(b, []))), 1)
-        table.save()
+        table = self._plan_table("alignment", train_bins, out_dir)
 
         sampler = DynamicBatchSampler(train_bins, table, seed=17)
         steps_per_epoch = len(sampler)
@@ -281,6 +318,129 @@ class Trainer:
         save_checkpoint(out_dir, state, self.manifest, cfg, self.mc,
                         self.normalization)
         return state
+
+    def _plan_table(self, stage, train_bins, out_dir) -> BatchSizeTable:
+        """The stage's batch size per bin, capped by the bin's population
+        (tiny datasets would otherwise yield zero full batches)."""
+        plan = self.config.training_plan.get_stage(stage)
+        table = BatchSizeTable(
+            path=osp.join(out_dir, f"{stage}_batch_sizes.json"),
+            probe_batch_max=plan.probe_batch_max,
+        )
+        table.plan(list(train_bins.keys()))
+        for b in list(table.sizes.keys()):
+            table.sizes[b] = max(min(table.sizes[b], len(train_bins.get(b, []))), 1)
+        table.save()
+        return table
+
+    # ---- acoustic stage --------------------------------------------------
+
+    def run_acoustic(self, state, train_ds, val_ds, train_bins, val_bins, out_dir,
+                     skip_batches=0):
+        cfg = self.config
+        plan = cfg.training_plan.get_stage("acoustic")
+        table = self._plan_table("acoustic", train_bins, out_dir)
+        sampler = DynamicBatchSampler(train_bins, table, seed=17)
+        steps_per_epoch = len(sampler)
+        self.manifest.steps_per_epoch = steps_per_epoch
+        stage_steps = max(plan.epochs * steps_per_epoch, 1)
+        ctx = StepContext(
+            self.mc, cfg.loss_weight.model_dump(), self.normalization,
+            stage_steps=stage_steps, base_lr=plan.lr,
+            slm_loss_fn=wavlm_loss if state.wavlm is not None else None,
+            mixed_precision=(cfg.training.mixed_precision == "bf16"
+                             and self.device.type == "cuda"),
+            sampled_mrd_only=cfg.training.sampled_mrd_only,
+        )
+        step_fn = make_acoustic_step(ctx)
+
+        window: List[Dict[str, object]] = []
+        t_start = time.time()
+        for epoch in range(self.manifest.current_epoch, plan.epochs + 1):
+            self.manifest.current_epoch = epoch
+            sampler.set_epoch(epoch)
+            loader = PrefetchLoader(
+                train_ds, sampler, self.mc.hop_length, require_pitch=True,
+                device_put=lambda b: batch_to_device(b, self.device),
+                depth=max(cfg.training.data_workers // 2, 2),
+            )
+            for i, (_bin, batch, paths) in enumerate(loader):
+                if skip_batches > 0:
+                    skip_batches -= 1
+                    continue
+                window.append(step_fn(state, batch))
+                self.batches.append(paths)
+                self.manifest.current_step = i + 1
+                self.manifest.current_total_step += 1
+                total_step = self.manifest.current_total_step
+                if total_step % cfg.training.log_interval == 0:
+                    self._log_metrics(window, ctx, total_step,
+                                      f"Epoch [{epoch}/{plan.epochs}], "
+                                      f"Step [{i + 1}/{steps_per_epoch}] ")
+                if total_step % cfg.training.val_interval == 0:
+                    self.acoustic_validation(state, ctx, val_ds, val_bins, table)
+                if total_step % cfg.training.save_interval == 0:
+                    save_checkpoint(out_dir, state, self.manifest, cfg, self.mc,
+                                    self.normalization)
+            self.manifest.current_step = 1
+        if window:
+            self._log_metrics(window, ctx, self.manifest.current_total_step,
+                              f"Epoch [{plan.epochs}/{plan.epochs}] ")
+        logger.info("stage acoustic done: %d steps, %.1f s", state.step,
+                    time.time() - t_start)
+        save_checkpoint(out_dir, state, self.manifest, cfg, self.mc, self.normalization)
+        return state
+
+    def _log_metrics(self, window, ctx, total_step, header):
+        """Move the window's device scalars to the host in one copy, log the
+        means, and keep every step's metrics."""
+        tensor_keys = sorted(k for k, v in window[0].items() if torch.is_tensor(v))
+        packed = torch.stack([torch.stack([m[k].float() for k in tensor_keys])
+                              for m in window]).cpu().numpy()
+        for m, row in zip(window, packed):
+            host = {k: float(v) for k, v in m.items() if not torch.is_tensor(v)}
+            host.update(zip(tensor_keys, map(float, row)))
+            self.step_metrics.append(host)
+        window.clear()
+        avg = combine_metrics(self.step_metrics[-len(packed):])
+        lr = avg.pop("lr", 0.0)
+        broadcast(avg, ctx.weights, self.writer, total_step, header=header)
+        self.writer.add_scalar("train/lr", lr, total_step)
+
+    def acoustic_validation(self, state, ctx, val_ds, val_bins, table):
+        """Mel spectral convergence over the val split at the planned batch
+        sizes (a ragged bin re-chunked to B = 1), and the eval samples'
+        predicted audio written as wav files. Updates ``manifest.best_loss``."""
+        step = self.manifest.current_total_step
+        sample_paths = set(select_validation_samples(
+            [s.wav_path for s in val_ds.segments],
+            self.config.validation.sample_count,
+            self.config.validation.force_samples,
+        ))
+        metrics_acc = []
+        for time_bin, idxs in DynamicBatchSampler(
+            val_bins, table, shuffle=False, drop_last=False,
+        ):
+            chunks = [idxs] if len(idxs) == table.get(time_bin) else [[j] for j in idxs]
+            for chunk in chunks:
+                items = [val_ds.load_segment(j) for j in chunk]
+                batch, paths = collate_batch(items, hop_length=self.mc.hop_length,
+                                             require_pitch=True)
+                m, audio = validate_acoustic(state, ctx, batch_to_device(batch, self.device))
+                metrics_acc.append(m["mel"])
+                for bi, p in enumerate(paths):
+                    if p in sample_paths:
+                        self.writer.add_audio(f"eval/{p}", audio[bi].float().cpu().numpy(),
+                                              step, self.mc.sample_rate)
+        if not metrics_acc:
+            return {}
+        avg = {"mel": float(torch.stack(metrics_acc).mean().cpu())}
+        total = broadcast(avg, ctx.weights, self.writer, step, prefix="eval",
+                          header=f"Validation step {step}: ")
+        if total < self.manifest.best_loss:
+            self.manifest.best_loss = total
+        self.validations.append({"step": step, "batches": len(metrics_acc), **avg})
+        return avg
 
     def _log_window(self, window, ctx, total_step, epoch, epochs, i,
                     steps_per_epoch):

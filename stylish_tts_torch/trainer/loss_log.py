@@ -1,17 +1,22 @@
 """Metrics to the logger and to TensorBoard.
 
-The part of ``stylish_tts_tpu/trainer/loss_log.py`` the alignment stage
-uses: a weighted reporting total, window means, logged and written to a
-SummaryWriter, or to a JSONL metrics file where
-``torch.utils.tensorboard`` is missing.
+The port's ``stylish_tts_tpu/trainer/loss_log.py``: a weighted reporting
+total (``lr`` and the ``*_lr_mult`` diagnostics excluded), window means,
+logged and written to a SummaryWriter, or to a JSONL metrics file where
+``torch.utils.tensorboard`` is missing. Eval audio goes to wav files under
+the stage directory (``samples/step_SSSSSSSSS/<segment>.wav``); figures are
+not written.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import os.path as osp
 from typing import Dict, List, Optional
+
+import numpy as np
 
 logger = logging.getLogger("stylish_tts_torch")
 
@@ -20,6 +25,7 @@ class MetricsWriter:
     """TensorBoard writer with a JSONL fallback."""
 
     def __init__(self, out_dir: str):
+        self.out_dir = out_dir
         self._tb = None
         self._jsonl = None
         try:
@@ -39,6 +45,20 @@ class MetricsWriter:
                 json.dumps({"tag": tag, "value": value, "step": step}) + "\n"
             )
             self._jsonl.flush()
+
+    def add_audio(self, tag: str, audio, step: int, sample_rate: int) -> str:
+        """Write ``audio`` (1-D) as a wav file named after the last part of
+        ``tag``; returns its path."""
+        from ..data.wav import write_wav
+
+        name = osp.basename(tag)
+        if not name.endswith(".wav"):
+            name += ".wav"
+        folder = osp.join(self.out_dir, "samples", f"step_{step:09d}")
+        os.makedirs(folder, exist_ok=True)
+        path = osp.join(folder, name)
+        write_wav(path, np.asarray(audio, dtype=np.float32), sample_rate)
+        return path
 
     def close(self) -> None:
         if self._tb is not None:
@@ -60,8 +80,10 @@ def combine_metrics(window: List[Dict[str, float]]) -> Dict[str, float]:
 
 
 def weighted_total(metrics: Dict[str, float], weights: Dict[str, float]) -> float:
-    # "lr" is an observability channel, not a loss term
-    return sum(weights.get(k, 1.0) * v for k, v in metrics.items() if k != "lr")
+    # "lr" and the "*_lr_mult" gap-aware-LR diagnostics are observability
+    # channels, not loss terms
+    return sum(weights.get(k, 1.0) * v for k, v in metrics.items()
+               if k != "lr" and not k.endswith("_lr_mult"))
 
 
 def broadcast(

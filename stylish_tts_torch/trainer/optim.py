@@ -1,10 +1,17 @@
-"""Per-module optimization: AdamW + cosine schedule + nonfinite guard.
+"""Per-module optimization: AdamW + cosine schedule + nonfinite guard +
+the discriminators' loss EMAs.
 
-Counterpart of ``stylish_tts_tpu/trainer/optim.py`` (the parts the
-alignment stage uses). optax's ``scale_by_adam`` then
-``add_decayed_weights``, scaled by ``-lr``, is the same update as
-``torch.optim.AdamW`` with the same betas, eps and weight decay:
-p <- p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p).
+Counterpart of ``stylish_tts_tpu/trainer/optim.py``. optax's
+``scale_by_adam`` then ``add_decayed_weights``, scaled by ``-lr``, is the
+same update as ``torch.optim.AdamW`` with the same betas, eps and weight
+decay: p <- p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p). optax steps
+every leaf, one whose gradient is zero (stop-gradient, unused) included,
+so a parameter that the backward did not reach gets a zero ``.grad``
+before the step instead of being skipped by AdamW.
+
+The EMAs live on the host as float32 0-d tensors: the gap-aware LR of a
+step is read from them before the step, so no device value is needed to
+launch it.
 """
 
 from __future__ import annotations
@@ -32,24 +39,36 @@ def make_optimizer(params: Iterable[torch.nn.Parameter]) -> torch.optim.AdamW:
     )
 
 
-def grads_finite(module: torch.nn.Module) -> bool:
-    """True when every gradient of ``module`` is finite (one host sync)."""
-    flags = [
-        torch.isfinite(p.grad).all()
-        for p in module.parameters() if p.grad is not None
-    ]
-    return bool(torch.stack(flags).all()) if flags else True
+def _finite_flag(module: torch.nn.Module) -> torch.Tensor:
+    """A device bool: every gradient of ``module`` is finite."""
+    grads = [p.grad for p in module.parameters() if p.grad is not None]
+    if not grads:
+        return torch.ones((), dtype=torch.bool, device=next(module.parameters()).device)
+    # the largest |g| of each tensor: NaN or inf exactly where one is there
+    return torch.isfinite(torch.stack(torch._foreach_norm(grads, float("inf")))).all()
+
+
+def modules_finite(modules) -> list:
+    """Whether every gradient of each module is finite, with one host sync
+    for all."""
+    return torch.stack([_finite_flag(m) for m in modules]).tolist()
 
 
 def apply_module_update(module: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                        lr: float) -> bool:
+                        lr: float, finite: bool | None = None) -> bool:
     """One AdamW step on ``module`` from its ``.grad``s at ``lr``.
 
     Nonfinite guard: if ANY gradient entry of the module is inf/nan, the
     step is skipped, so the params, the moments and the step count all keep
-    their old values. Returns whether the update was applied."""
-    if not grads_finite(module):
+    their old values. ``finite`` passes a flag already read (see
+    ``modules_finite``). Returns whether the update was applied."""
+    if finite is None:
+        finite = modules_finite([module])[0]
+    if not finite:
         return False
+    for p in module.parameters():
+        if p.requires_grad and p.grad is None:
+            p.grad = torch.zeros_like(p)
     for group in optimizer.param_groups:
         group["lr"] = lr
     optimizer.step()
@@ -70,3 +89,27 @@ def cosine_lr(base_lr: float, step: int, stage_steps: int) -> float:
         np.float32(1.0) + np.cos(np.float32(math.pi) * progress)
     )
     return float(np.float32(lr))
+
+
+# EMA sub-counts per discriminator (number of score heads: the MRDs, pitch
+# and duration discs have 5, the waveform disc 1)
+DISC_SUB_COUNT = {
+    "mrd0": 5.0,
+    "mrd1": 5.0,
+    "mrd2": 5.0,
+    "disc": 1.0,
+    "pitch_disc": 5.0,
+    "dur_disc": 5.0,
+}
+
+
+def init_disc_ema() -> dict:
+    return {name: torch.tensor(0.5 * count, dtype=torch.float32)
+            for name, count in DISC_SUB_COUNT.items()}
+
+
+def update_disc_ema(ema: torch.Tensor, raw_loss: torch.Tensor) -> torch.Tensor:
+    """last = 0.95 * last + 0.05 * loss in float32; a nonfinite result keeps
+    the old EMA (the same step the gradient guard skips)."""
+    new = ema * 0.95 + raw_loss.detach().to(ema) * 0.05
+    return torch.where(torch.isfinite(new), new, ema)

@@ -1,21 +1,32 @@
-"""Training state, the alignment part of ``stylish_tts_tpu/trainer/state.py``.
+"""Training state: the port's ``stylish_tts_tpu/trainer/state.py``.
 
 The JAX state is an immutable pytree threaded through a pure step; here
-it is one mutable object that the step updates in place: the aligner
-module holds its parameters, its AdamW holds the moments and step count,
-the label-prior accumulators are device tensors, and a
-``torch.Generator`` on the device replaces the JAX ``rng`` key.
-``state_dict`` / ``load_state_dict`` carry all of it through a checkpoint
-(``trainer/checkpoint.py``).
+it is one mutable object per stage that the step updates in place:
+
+* ``TrainState`` (alignment): the aligner module holds its parameters,
+  its AdamW the moments and step count, the label-prior accumulators are
+  device tensors, and a ``torch.Generator`` on the device replaces the JAX
+  ``rng`` key;
+* ``AcousticTrainState``: the six modules of the acoustic stage, one AdamW
+  each, the discriminators' loss EMAs (host float32), three generators in
+  place of the JAX key's per-step splits (dropout and model on the device;
+  the disc index on the host, since it picks which MRD runs), the step, and
+  the frozen WavLM, held by reference and never checkpointed (the JAX
+  ``frozen``).
+
+``state_dict`` / ``load_state_dict`` carry everything but the WavLM through
+a checkpoint (``trainer/checkpoint.py``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict, Optional
 
 import torch
+from torch import nn
 
-from .optim import make_optimizer
+from .optim import init_disc_ema, make_optimizer
 
 
 @dataclass
@@ -66,4 +77,58 @@ def create_train_state(aligner: torch.nn.Module, n_classes: int,
                                   device=device),
         prior_count=torch.zeros((), dtype=torch.float32, device=device),
         generator=generator,
+    )
+
+
+@dataclass
+class AcousticTrainState:
+    models: Dict[str, nn.Module]
+    optimizers: Dict[str, torch.optim.Optimizer]
+    disc_ema: Dict[str, torch.Tensor]
+    dropout_generator: torch.Generator
+    model_generator: torch.Generator
+    disc_index_generator: torch.Generator
+    step: int = 0
+    wavlm: Optional[nn.Module] = None
+
+    GENERATORS = ("dropout_generator", "model_generator", "disc_index_generator")
+
+    def state_dict(self) -> dict:
+        """Everything a resume needs but the WavLM, as tensors, numbers and
+        containers of them (loadable with ``torch.load(weights_only=True)``)."""
+        return {
+            "models": {k: m.state_dict() for k, m in self.models.items()},
+            "optimizers": {k: o.state_dict() for k, o in self.optimizers.items()},
+            "disc_ema": dict(self.disc_ema),
+            "generators": {g: getattr(self, g).get_state() for g in self.GENERATORS},
+            "step": self.step,
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore in place from ``state_dict()``'s output (on any device)."""
+        for k, m in self.models.items():
+            m.load_state_dict(state["models"][k])
+        for k, o in self.optimizers.items():
+            o.load_state_dict(state["optimizers"][k])
+        self.disc_ema = {k: v.to("cpu", torch.float32) for k, v in state["disc_ema"].items()}
+        for g in self.GENERATORS:
+            getattr(self, g).set_state(state["generators"][g])
+        self.step = int(state["step"])
+
+
+def create_acoustic_train_state(models: Dict[str, nn.Module], device,
+                                seed: int = 0) -> AcousticTrainState:
+    models = {k: m.to(device) for k, m in models.items()}
+    gens = []
+    for i, dev in enumerate((device, device, "cpu")):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed * 3 + i)
+        gens.append(g)
+    return AcousticTrainState(
+        models=models,
+        optimizers={k: make_optimizer(m.parameters()) for k, m in models.items()},
+        disc_ema=init_disc_ema(),
+        dropout_generator=gens[0],
+        model_generator=gens[1],
+        disc_index_generator=gens[2],
     )

@@ -1,24 +1,58 @@
-"""Train steps: the alignment stage of ``stylish_tts_tpu/trainer/steps.py``.
+"""Train steps: the alignment and acoustic stages of
+``stylish_tts_tpu/trainer/steps.py``.
 
 alignment: log-mel of the batch audio -> TextAligner (with dropout) ->
 CTC with label priors (scale 0.3) through the CUDA kernels on the card
 (the plain version on the CPU) -> AdamW with the nonfinite guard; the
 label priors accumulate from the detached posteriors and are refreshed
 at each epoch's end.
+
+acoustic: ground-truth prosody -> speech_predictor (style from the mel
+style encoder) -> audio; the generator loss is mel spectral convergence +
+multi-phase + adversarial over the three MRDs and the waveform disc (+ slm
+through the frozen WavLM), combined by the loss-normalised
+``backwards_loss``; AdamW on the two trained modules; then a discriminator
+step on the detached outputs, its loss scaled by sqrt(B): the sampled MRD
+and the waveform disc are updated at lr x their gap-aware multiplier
+(read from the EMAs before the step); the MRDs not sampled take no AdamW
+step at all (weights, moments and step count untouched). With
+``sampled_mrd_only`` (the default) only the sampled MRD runs and only its
+EMA moves; without it all three run and their EMAs move.
+
+Precision: with ``mixed_precision`` the generator phase runs under bf16
+autocast on the card (master weights and AdamW float32); the DSP, the
+generator head's atan2/exp, the WavLM logits and resampler and the disc
+losses stay float32, and the discriminators run in bf16 only when
+``generator.remat`` is set too (the JAX ``disc_dtype`` rule).
+
+The JAX key's per-step splits become the state's generators; the
+``parity_deterministic`` / ``parity_prior`` / ``forced_disc_index``
+switches are the JAX package's.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import losses as L
 from ..dsp.mel import MelSpectrogram
+from ..dsp.multi_spectrogram import MultiSpectrogram
+from ..models.models import ACOUSTIC_DISCRIMINATORS, ACOUSTIC_TRAIN_MODELS
 from ..ops import ctc as ctc_ops
 from ..ops.ctc_cuda import ctc_loss_with_priors_cuda
-from .optim import apply_module_update, cosine_lr
-from .state import TrainState
+from ..ops.duration import DurationProcessor
+from .optim import (
+    DISC_SUB_COUNT,
+    apply_module_update,
+    cosine_lr,
+    modules_finite,
+    update_disc_ema,
+)
+from .state import AcousticTrainState, TrainState
 
 PRIOR_SCALE = 0.3
 
@@ -42,12 +76,29 @@ def batch_to_device(batch: Batch, device) -> Batch:
 
 
 class StepContext:
-    """Static step-construction context: the alignment parts of the JAX
-    ``StepContext`` (normalization, the align mel transform, blank id,
-    LR schedule constants)."""
+    """Static step-construction context: the JAX ``StepContext``
+    (normalization, the mel transforms, the multi-resolution spectrogram,
+    the duration processor, blank id, LR schedule constants, precision and
+    the parity switches). ``slm_loss_fn`` (WavLM, target, prediction) ->
+    scalar is set when the slm term is on; the WavLM rides the state."""
 
     def __init__(self, model_config, loss_weights, normalization,
-                 stage_steps: int = 10_000, base_lr: float = 1e-4):
+                 stage_steps: int = 10_000, base_lr: float = 1e-4,
+                 slm_loss_fn=None, mixed_precision: bool = False,
+                 parity_deterministic: bool = False, parity_prior=None,
+                 sampled_mrd_only: bool = True,
+                 forced_disc_index: Optional[int] = None):
+        # parity_deterministic: no dropout, no decoder smoothing, a
+        # deterministic sine source; parity_prior: an injected excitation;
+        # forced_disc_index: a fixed MRD. For holding the step against the
+        # JAX package; never used in production training.
+        self.parity_deterministic = parity_deterministic
+        self.parity_prior = parity_prior
+        self.sampled_mrd_only = sampled_mrd_only
+        self.forced_disc_index = forced_disc_index
+        self.slm_loss_fn = slm_loss_fn
+        self.mixed_precision = mixed_precision
+        self.disc_bf16 = mixed_precision and model_config.generator.remat
         mc = model_config
         self.mc = mc
         self.weights = loss_weights
@@ -60,6 +111,17 @@ class StepContext:
             hop_length=mc.hop_length * mc.coarse_multiplier,
             sample_rate=mc.sample_rate,
         )
+        self.to_mel = MelSpectrogram(
+            n_mels=mc.n_mels, n_fft=mc.n_fft, win_length=mc.win_length,
+            hop_length=mc.hop_length, sample_rate=mc.sample_rate,
+        )
+        se = mc.style_encoder
+        self.to_style_mel = MelSpectrogram(
+            n_mels=se.n_mels, n_fft=se.n_fft, win_length=se.win_length,
+            hop_length=se.hop_length, sample_rate=mc.sample_rate,
+        )
+        self.multi_spec = MultiSpectrogram(sample_rate=mc.sample_rate)
+        self.duration_processor = DurationProcessor()
         self.blank_id = mc.text_encoder.tokens
 
     def norm_mel(self, audio, transform):
@@ -67,6 +129,17 @@ class StepContext:
         mel = (torch.log(1e-5 + mel) - self.norm.mel_log_mean) / self.norm.mel_log_std
         frames = mel.shape[-1] - (mel.shape[-1] % 2)
         return mel[:, :, :frames]
+
+    def energy_from_mel(self, mel):
+        """log L2 norm over the mel bins of the denormalized mel."""
+        denorm = torch.exp(mel * self.norm.mel_log_std + self.norm.mel_log_mean)
+        return torch.log(torch.linalg.vector_norm(denorm, dim=1) + 1e-9)
+
+    def disc_autocast(self, device: torch.device):
+        """The discriminators' precision (the JAX ``disc_dtype``): bf16 only
+        with mixed precision and ``generator.remat``, float32 otherwise,
+        whatever the enclosing autocast."""
+        return torch.autocast(device.type, dtype=torch.bfloat16, enabled=self.disc_bf16)
 
 
 def make_alignment_step(ctx: StepContext):
@@ -116,3 +189,150 @@ def finish_alignment_epoch(ctx: StepContext, state: TrainState) -> TrainState:
     state.log_priors_sum = torch.full_like(state.log_priors_sum, -1e30)
     state.prior_count = torch.zeros_like(state.prior_count)
     return state
+
+
+# ==========================================================================
+# Acoustic stage
+# ==========================================================================
+
+
+def _acoustic_features(ctx: StepContext, batch: Batch):
+    """(mel, style_mel, energy, pitch, alignment, frames) of the batch, no
+    gradient."""
+    with torch.no_grad():
+        mel = ctx.norm_mel(batch.audio_gt, ctx.to_mel)
+        style_mel = ctx.norm_mel(batch.audio_gt, ctx.to_style_mel)
+        energy = ctx.energy_from_mel(mel)
+        frames = mel.shape[-1]
+        pitch = batch.pitch[:, :frames].to(torch.float32)
+        alignment = ctx.duration_processor.duration_to_alignment(batch.durations, frames)
+    return mel, style_mel, energy, pitch, alignment, frames
+
+
+def _adv_generator_metrics(ctx, models, feats_t, feats_p, audio_t, audio_p):
+    """Generator-side adversarial loss over the 3 MRDs + the waveform disc
+    (whose parameters the caller has frozen)."""
+    total = 0.0
+    with ctx.disc_autocast(audio_p.device):
+        for i in range(3):
+            mrd = models[f"mrd{i}"]
+            total = total + L.generator_pair_loss(mrd(feats_t.fft_mag[i]),
+                                                  mrd(feats_p.fft_mag[i]))
+        disc = models["disc"]
+        total = total + L.DISC_AUDIO_WEIGHT * L.generator_pair_loss(disc(audio_t),
+                                                                     disc(audio_p))
+    return total
+
+
+def _disc_phase_mrd(ctx, state: AcousticTrainState, feats_t_fft, pred_fft_detached,
+                    audio_t, audio_p_detached, disc_index: int, lr: float,
+                    sqrt_b: float):
+    """Discriminator step on the detached generator outputs; returns
+    (d_loss, lr_mults). Updates the sampled MRD and the waveform disc (one
+    host sync: their finite flags and the raw LSGAN terms for the EMAs)."""
+    models = state.models
+    active = [disc_index] if ctx.sampled_mrd_only else [0, 1, 2]
+    for name in ACOUSTIC_DISCRIMINATORS:
+        models[name].requires_grad_(True)
+        state.optimizers[name].zero_grad(set_to_none=True)
+    total = 0.0
+    raws = {}
+    with ctx.disc_autocast(audio_t.device):
+        for i in active:
+            mrd = models[f"mrd{i}"]
+            pair, raws[f"mrd{i}"] = L.discriminator_pair_loss(
+                mrd(feats_t_fft[i]), mrd(pred_fft_detached[i]))
+            total = total + pair
+        disc = models["disc"]
+        pair, raws["disc"] = L.discriminator_pair_loss(disc(audio_t), disc(audio_p_detached))
+        total = total + L.DISC_AUDIO_WEIGHT * pair
+    (total * sqrt_b).backward()
+
+    # gap-aware LR multipliers from the PRE-update EMAs
+    lr_mults = {f"{name}_lr_mult": float(L.disc_lr_multiplier(state.disc_ema[name],
+                                                              DISC_SUB_COUNT[name]))
+                for name in ACOUSTIC_DISCRIMINATORS}
+    stepped = [f"mrd{disc_index}", "disc"]
+    raw_names = sorted(raws)
+    flags = modules_finite([models[n] for n in stepped])
+    host = torch.stack([raws[n].detach() for n in raw_names]).cpu()
+    for name, flag in zip(stepped, flags):
+        apply_module_update(models[name], state.optimizers[name],
+                            lr * lr_mults[f"{name}_lr_mult"], finite=flag)
+    for name, raw in zip(raw_names, host):
+        state.disc_ema[name] = update_disc_ema(state.disc_ema[name], raw)
+    return total.detach(), lr_mults
+
+
+def make_acoustic_step(ctx: StepContext):
+    """(state, batch on the state's device) -> metrics; updates ``state``
+    in place. Metrics: device scalars ``mel``, ``multi_phase``,
+    ``generator``, ``slm`` (when on) and ``discriminator``; floats ``lr`` and
+    ``<disc>_lr_mult``."""
+
+    def step(state: AcousticTrainState, batch: Batch):
+        models = state.models
+        sp, se = models["speech_predictor"], models["speech_style_encoder"]
+        device = batch.audio_gt.device
+        mel, style_mel, energy, pitch, alignment, frames = _acoustic_features(ctx, batch)
+        with torch.no_grad():
+            audio_t = batch.audio_gt[:, : frames * ctx.mc.hop_length].to(torch.float32)
+            feats_t = ctx.multi_spec(audio_t)
+        if ctx.forced_disc_index is not None:
+            disc_index = int(ctx.forced_disc_index)
+        else:
+            disc_index = int(torch.randint(3, (1,), generator=state.disc_index_generator))
+        sqrt_b = math.sqrt(batch.text.shape[0])
+        lr = cosine_lr(ctx.base_lr, state.step, ctx.stage_steps)
+
+        # --- generator phase; the discriminators are frozen ---
+        training = not ctx.parity_deterministic
+        sp.train(training)
+        se.train(training)
+        for name in ACOUSTIC_DISCRIMINATORS:
+            models[name].requires_grad_(False)
+        for name in ACOUSTIC_TRAIN_MODELS:
+            state.optimizers[name].zero_grad(set_to_none=True)
+        with torch.autocast(device.type, dtype=torch.bfloat16,
+                            enabled=ctx.mixed_precision):
+            style = se(style_mel)
+            voiced = (pitch > 20.0).to(torch.float32)
+            pred = sp(
+                batch.text, batch.text_lengths, alignment, pitch, energy, voiced, style,
+                pitch, generator=state.model_generator if training else None,
+                prior=ctx.parity_prior, deterministic_prior=ctx.parity_deterministic,
+                dropout_generator=state.dropout_generator,
+            )
+            pred_audio = pred.audio.float()
+            feats_p = ctx.multi_spec(pred_audio)
+            metrics = {
+                "mel": L.spectral_convergence_loss(feats_t.mel, feats_p.mel),
+                "multi_phase": L.multi_phase_loss(feats_p.phase, feats_t.phase),
+                "generator": _adv_generator_metrics(ctx, models, feats_t, feats_p,
+                                                    audio_t, pred_audio),
+            }
+            if ctx.slm_loss_fn is not None:
+                if batch.slm_gt is not None:
+                    from ..models.slm import wavlm_loss_cached
+
+                    metrics["slm"] = wavlm_loss_cached(state.wavlm, batch.slm_gt, pred_audio)
+                else:
+                    metrics["slm"] = ctx.slm_loss_fn(state.wavlm, audio_t, pred_audio)
+        L.backwards_loss(metrics, ctx.weights).backward()
+        flags = modules_finite([models[n] for n in ACOUSTIC_TRAIN_MODELS])
+        for name, flag in zip(ACOUSTIC_TRAIN_MODELS, flags):
+            apply_module_update(models[name], state.optimizers[name], lr, finite=flag)
+
+        # --- discriminator phase on the detached outputs ---
+        d_loss, lr_mults = _disc_phase_mrd(
+            ctx, state, feats_t.fft_mag, [f.detach() for f in feats_p.fft_mag],
+            audio_t, pred_audio.detach(), disc_index, lr, sqrt_b,
+        )
+        state.step += 1
+        out = {k: v.detach() for k, v in metrics.items()}
+        out["discriminator"] = d_loss
+        out["lr"] = lr
+        out.update(lr_mults)
+        return out
+
+    return step
