@@ -67,26 +67,35 @@ Phases (any failure exits non-zero):
    acoustic-stage batch collated from the port-made caches with
    ``require_pitch=True``, its soft alignment covering every frame; the
    native loader against scipy on a batch of 69;
-7. the acoustic stage at the full default ``ModelConfig()`` on phase 6's
-   corpus and caches: ``train --stage acoustic`` through the CLI (bf16,
-   the slm term on with the seeded random WavLM, ``probe_batch_max`` 16,
-   B = 8 by the batch plan at 440 frames, 2 epochs = 40 steps,
-   validation every 10 steps with eval wavs, a
-   checkpoint every 2 steps) with deterministic cuDNN, its CTC launch
-   counts zeroed before and read after (0: no Pallas kernel backs this
-   stage); a resume from the oldest kept checkpoint against the
-   uninterrupted run (the same batches, metrics within 1e-2 relative, each
-   module's weights within 0.05 of their move, L2); one fp32 step with the
-   parity switches on the card against the CPU from the same weights (B=2,
-   1 s; metrics 1e-3 relative, each module's weights within 0.1 of the
-   step's move, L2; see ``CARD_CPU_*``); 20
-   bf16 steps on one batch of 16 (metrics finite, lr multipliers in [0.01,
-   4], mel at the last below 0.9 x the first), timed; one step traced
-   (device time by group, launches, busy share, peak memory,
-   ``chiprun_out/profile_acoustic_step.json``) and WavLM's loss forward and
-   backward timed alone for its share of the step;
-8. print the synthesis, front-end and acoustic summary lines, the
-   ``kernels`` JSON line (launch counts of the front end's
+7. the three stages of ``train`` at the full default ``ModelConfig()`` on
+   phase 6's corpus and caches: ``train --stage acoustic`` through the CLI
+   (bf16, the slm term on with the seeded random WavLM; acoustic
+   ``probe_batch_max`` 16, B = 8 by the batch plan at 440 frames, 2 epochs
+   = 40 steps; then textual and duration, their plans written out in full,
+   B = 17, 1 epoch = 9 steps each; validation every 4 steps with eval wavs,
+   a checkpoint every 2 steps) with deterministic cuDNN, its CTC launch
+   counts zeroed before and read after (0: no Pallas kernel backs these
+   stages); each stage's steps, validations, pruned checkpoints and
+   manifest; the frozen modules bitwise across both hand-offs. Against that
+   run (the same batches, metrics within 1e-2 relative, each stage's
+   trained modules within 0.05 of their move, L2): a resume from the
+   oldest kept acoustic checkpoint, which runs on through textual and
+   duration; ``--stage textual`` from the acoustic stage's last checkpoint
+   (the acoustic modules bitwise); a resume from the oldest kept textual
+   checkpoint. One fp32 step of each stage with the parity switches on the
+   card against the CPU from the same weights (B=2, 1 s; metrics 1e-3
+   relative, each trained module's weights within 0.1 of the step's move,
+   L2; see ``CARD_CPU_*``). 20 bf16 steps of each stage on one fixed batch
+   (acoustic and textual B = 16, duration B = 32; metrics finite, lr
+   multipliers in [0.01, 4]; the acoustic mel, the textual pitch + energy
+   and the duration class cross entropy falling by the margins of
+   ``MEL_DROP`` / ``LATER_MOVES``), timed; one step of each traced (device
+   time by group, launches, busy share, peak memory,
+   ``chiprun_out/profile_{acoustic,textual,duration}_step.json``), WavLM's
+   loss forward and backward and the textual step's frozen speech
+   predictor forward and backward timed alone for their shares;
+8. print the synthesis, front-end, acoustic and later-stage summary lines,
+   the ``kernels`` JSON line (launch counts of the front end's
    ``train-align``), then the device line last.
 
 Tolerances: the kernels carry the trellis as float-float pairs and
@@ -267,7 +276,7 @@ def phase_main_path(torch, work: Path):
     for name in ctc_cuda.LAUNCHES:
         ctc_cuda.LAUNCHES[name] = 0
     t0 = time.time()
-    trainer = Trainer(config, mc, str(work / "out"), device="cuda")
+    trainer = Trainer(config, mc, str(work / "out"), device="cuda", record_steps=True)
     state = trainer.train("alignment")
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -1252,7 +1261,8 @@ def front_train(torch, cfg, out):
     for counts in (ctc_cuda.LAUNCHES, loader.BATCHES):
         for name in counts:
             counts[name] = 0
-    trainer, wall = cli(torch, "train-align", "--config", str(cfg), "--out", str(out))
+    trainer, wall = cli(torch, "train-align", "--config", str(cfg), "--out", str(out),
+                        "--record-steps")
     launches = dict(ctc_cuda.LAUNCHES)
     batches = dict(loader.BATCHES)
     steps = len(trainer.losses)
@@ -1303,7 +1313,8 @@ def front_resume(torch, cfg, work, full):
     stage_dir = work / "out" / "alignment"
     names = checkpoint_dirs(stage_dir)
     resumed, wall = cli(torch, "train-align", "--config", str(cfg), "--out",
-                        str(work / "resumed"), "--checkpoint", str(stage_dir / names[0]))
+                        str(work / "resumed"), "--checkpoint", str(stage_dir / names[0]),
+                        "--record-steps")
     n = len(resumed.losses)
     ref = np.asarray(full.losses[-n:])
     loss_rel = float(np.max(np.abs(np.asarray(resumed.losses) - ref) / np.abs(ref)))
@@ -1610,17 +1621,25 @@ def phase_front_end(torch, work: Path, card: str):
 
 # ---------------------------------------------------------------- phase 7
 
-# the acoustic stage on the front end's corpus and caches: probe_batch_max
-# 16 plans B = int(16 x 240 / 440) = 8 for the clips' 440-frame bin (the
-# batch planner's memory rule), so 160 train clips give 20 steps per epoch
+# the three stages of ``train`` on the front end's corpus and caches. The
+# batch planner's memory rule gives B = int(probe_batch_max x 240 / 440)
+# at the clips' 440-frame bin: acoustic (probe_batch_max 16) B = 8, so
+# 160 train clips give 20 steps per epoch; textual and duration (32, the
+# JAX defaults) B = 17, 9 steps per epoch
 ACOUSTIC_EPOCHS = 2
 ACOUSTIC_PROBE_BATCH_MAX = 16
-ACOUSTIC_VAL_INTERVAL = 10
-ACOUSTIC_SAVE_INTERVAL = 2
+# training_plan.textual and .duration, written out in full: the JAX
+# defaults but for the epochs
+LATER_PLANS = {"textual": {"epochs": 1, "probe_batch_max": 32, "lr": 3e-5},
+               "duration": {"epochs": 1, "probe_batch_max": 32, "lr": 1e-4}}
+STAGES = ("acoustic", "textual", "duration")
+VAL_INTERVAL = 4  # every stage validates at least twice
+SAVE_INTERVAL = 2
 ACOUSTIC_B = 16  # the timed batch, one bin of the corpus
-# the resumed run against the uninterrupted one: each metric within 1e-2
-# relative; each module's weights within 0.05 of their move over the
-# resumed span (L2 norms of the differences)
+# a resumed or restarted run against the uninterrupted one: each metric
+# within 1e-2 relative; each stage's trained modules' weights within 0.05
+# of their move over the span both runs trained (L2 norms of the
+# differences)
 ACOUSTIC_RESUME_RTOL = 1e-2
 # card against CPU, one fp32 step with the parity switches: metrics rtol
 # 1e-3; each module's updated weights within 0.1 of the step's move (L2),
@@ -1665,9 +1684,10 @@ def acoustic_group(name: str, scope: str | None) -> str:
 
 
 def acoustic_configs(data: Path, work: Path):
-    """The acoustic stage's YAMLs: every field of ``training_plan.acoustic``
-    written out (a partial plan takes the class defaults); bf16; the slm term
-    at its default 0.2 with the seeded random WavLM."""
+    """The YAMLs of ``train``: every field of ``training_plan.<stage>``
+    written out for the three stages (a partial plan takes the class
+    defaults); bf16; the slm term at its default 0.2 with the seeded random
+    WavLM."""
     import yaml
 
     from stylish_tts_torch.config import ModelConfig
@@ -1675,11 +1695,12 @@ def acoustic_configs(data: Path, work: Path):
     cfg = work / "acoustic.yml"
     cfg.write_text(yaml.safe_dump({
         "dataset": {"path": str(data)},
-        "training": {"log_interval": 5, "val_interval": ACOUSTIC_VAL_INTERVAL,
-                     "save_interval": ACOUSTIC_SAVE_INTERVAL, "mixed_precision": "bf16"},
+        "training": {"log_interval": 5, "val_interval": VAL_INTERVAL,
+                     "save_interval": SAVE_INTERVAL, "mixed_precision": "bf16"},
         "training_plan": {"acoustic": {"epochs": ACOUSTIC_EPOCHS,
                                        "probe_batch_max": ACOUSTIC_PROBE_BATCH_MAX,
-                                       "lr": 1e-4}},
+                                       "lr": 1e-4},
+                          **LATER_PLANS},
         "loss_weight": {"slm": 0.2},
         "validation": {"sample_count": 2},
     }), encoding="utf-8")
@@ -1690,10 +1711,11 @@ def acoustic_configs(data: Path, work: Path):
     return cfg, model_cfg
 
 
-def acoustic_train(torch, cfg, model_cfg, out, *extra):
-    """``train --stage acoustic`` through the CLI (deterministic cuDNN, so a
-    resume can be held against the uninterrupted run); the CTC counts are
-    zeroed before and read after: no Pallas kernel backs this stage."""
+def stage_train(torch, cfg, model_cfg, out, stage, *extra):
+    """``train --stage <stage>`` through the CLI, on through the later
+    stages (deterministic cuDNN, so a resume can be held against the
+    uninterrupted run), every step's metrics kept; the CTC counts are zeroed
+    before and read after: no Pallas kernel backs these stages."""
     import numpy as np
 
     from stylish_tts_torch.ops import ctc_cuda
@@ -1702,82 +1724,194 @@ def acoustic_train(torch, cfg, model_cfg, out, *extra):
         ctc_cuda.LAUNCHES[name] = 0
     torch.backends.cudnn.deterministic = True
     try:
-        trainer, wall = cli(torch, "train", "--stage", "acoustic", "--config", str(cfg),
-                            "--model-config", str(model_cfg), "--out", str(out), *extra)
+        trainer, wall = cli(torch, "train", "--stage", stage, "--config", str(cfg),
+                            "--model-config", str(model_cfg), "--out", str(out),
+                            "--record-steps", *extra)
     finally:
         torch.backends.cudnn.deterministic = False
     launches = dict(ctc_cuda.LAUNCHES)
     if any(launches.values()):
-        fail(f"the acoustic stage launched a CTC kernel: {launches}")
+        fail(f"train --stage {stage} launched a CTC kernel: {launches}")
     for m in trainer.step_metrics:
         if not all(np.isfinite(list(m.values()))):
-            fail(f"nonfinite acoustic metric: {m}")
+            fail(f"nonfinite training metric: {m}")
         mults = [v for k, v in m.items() if k.endswith("_lr_mult")]
-        if len(mults) != 4 or not all(0.01 - 1e-6 <= v <= 4.0 + 1e-6 for v in mults):
+        # four in the acoustic stage (3 MRDs, disc), one in each later one
+        if len(mults) not in (1, 4) or not all(0.01 - 1e-6 <= v <= 4.0 + 1e-6
+                                               for v in mults):
             fail(f"lr multipliers outside [0.01, 4]: {m}")
+    for v in trainer.validations:
+        if not all(np.isfinite(x) for k, x in v.items() if k not in ("stage", "step")):
+            fail(f"nonfinite validation: {v}")
     return trainer, wall, launches
 
 
+def stage_runs(trainer, stages):
+    """Per stage: (first row, row count) of the trainer's step records."""
+    spans, at = {}, 0
+    for stage in stages:
+        n = trainer.stage_manifests[stage].current_total_step
+        spans[stage] = (at, n)
+        at += n
+    return spans
+
+
+def saved_models(torch, path):
+    return torch.load(path / "state.pt", map_location="cpu", weights_only=True)["models"]
+
+
+def span_ratios(torch, full, other, start, names):
+    """Per module: L2 of (other - full) over L2 of (full - start)."""
+    ratios = {}
+    for module in names:
+        err = torch.sqrt(sum(((full[module][k].float() - other[module][k].float()) ** 2)
+                             .sum() for k in full[module]))
+        move = torch.sqrt(sum(((full[module][k].float() - start[module][k].float()) ** 2)
+                              .sum() for k in full[module]))
+        ratios[module] = float(err / move.clamp_min(1e-30))
+    return ratios
+
+
+def compare_runs(torch, full, other, out_full, out_other, first_stage, start):
+    """``other`` (resumed or restarted at ``first_stage``) against the
+    uninterrupted run: the same batches, its metrics within the resume
+    tolerance, and at each stage's last checkpoint the stage's trained
+    modules within 0.05 of their move since ``start`` (the checkpoint the
+    other run began from; for a stage after it, the stage's own start)."""
+    from stylish_tts_torch.models import STAGE_DISCRIMINATORS, STAGE_TRAIN_MODELS
+
+    n = len(other.step_metrics)
+    ref = full.step_metrics[-n:]
+    rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+              for a, b in zip(other.step_metrics, ref) for k in b)
+    ratios = {}
+    for stage in STAGES[STAGES.index(first_stage):]:
+        last = checkpoint_dirs(out_full / stage)[-1]
+        names = STAGE_TRAIN_MODELS[stage] + STAGE_DISCRIMINATORS[stage]
+        ratios.update({f"{stage}/{k}": v for k, v in span_ratios(
+            torch, saved_models(torch, out_full / stage / last),
+            saved_models(torch, out_other / stage / last), start, names).items()})
+        start = saved_models(torch, out_full / stage / last)
+    if (other.batches != full.batches[-n:] or not 0 < n < len(full.step_metrics)
+            or rel > ACOUSTIC_RESUME_RTOL or max(ratios.values()) > WEIGHT_SPAN_RTOL):
+        fail(f"{out_other.name} against the uninterrupted run: {n} steps, same batches "
+             f"{other.batches == full.batches[-n:]}, metric rel err {rel:.3e} (<= "
+             f"{ACOUSTIC_RESUME_RTOL}), weights/move {ratios} (<= {WEIGHT_SPAN_RTOL})")
+    return n, rel, ratios
+
+
 def acoustic_stage(torch, data, work):
-    """Train, validate and checkpoint through the CLI; then resume from the
-    oldest kept checkpoint into a second directory."""
+    """``train --stage acoustic`` through the CLI: acoustic, then textual,
+    then duration, validated and checkpointed; the frozen modules held
+    bitwise across each hand-off. Then against that run: a resume inside
+    acoustic, a start of ``--stage textual`` from the acoustic stage's last
+    checkpoint, and a resume inside textual."""
     import numpy as np
+
+    from stylish_tts_torch.models import STAGE_DISCRIMINATORS, STAGE_TRAIN_MODELS
+    from stylish_tts_torch.trainer.checkpoint import read_manifest
 
     cfg, model_cfg = acoustic_configs(data, work)
     out = work / "acoustic_out"
-    trainer, wall, launches = acoustic_train(torch, cfg, model_cfg, out)
-    steps = trainer.manifest.current_total_step
-    if (steps != ACOUSTIC_EPOCHS * trainer.manifest.steps_per_epoch or steps < 20
-            or len(trainer.step_metrics) != steps):
-        fail(f"acoustic: {steps} steps of {trainer.manifest.steps_per_epoch} per epoch, "
-             f"{len(trainer.step_metrics)} metric rows")
-    batch_size = len(trainer.batches[0])
-    if (len(trainer.validations) != steps // ACOUSTIC_VAL_INTERVAL
-            or not all(np.isfinite(v["mel"]) for v in trainer.validations)):
-        fail(f"acoustic validations: {trainer.validations}")
-    stage_dir = out / "acoustic"
-    samples = sorted((stage_dir / "samples").glob("step_*/*.wav"))
-    if len(samples) != 2 * len(trainer.validations):
-        fail(f"eval samples written: {[str(s) for s in samples]}")
-    names = checkpoint_dirs(stage_dir)
-    if len(names) != MAX_KEEP or names[-1] != f"checkpoint_{ACOUSTIC_EPOCHS:05d}_step_{steps:09d}":
-        fail(f"acoustic checkpoints not pruned to {MAX_KEEP}: {names}")
-    log(f"train --stage acoustic: {steps} steps at B={batch_size}, {wall:.1f} s; "
-        f"validation {[(v['step'], round(v['mel'], 4)) for v in trainer.validations]}; "
-        f"checkpoints {names}; CTC launches {launches}; first/last mel "
-        f"{trainer.step_metrics[0]['mel']:.4f} / {trainer.step_metrics[-1]['mel']:.4f}")
+    trainer, wall, launches = stage_train(torch, cfg, model_cfg, out, "acoustic")
+    spans = stage_runs(trainer, STAGES)
+    epochs = {"acoustic": ACOUSTIC_EPOCHS, **{k: v["epochs"] for k, v in LATER_PLANS.items()}}
+    per_stage, last = {}, {}
+    for stage in STAGES:
+        manifest = trainer.stage_manifests[stage]
+        steps = manifest.current_total_step
+        stage_dir = out / stage
+        vals = [v for v in trainer.validations if v["stage"] == stage]
+        names = checkpoint_dirs(stage_dir)
+        last[stage] = names[-1]
+        if steps != epochs[stage] * manifest.steps_per_epoch or steps < 8:
+            fail(f"{stage}: {steps} steps of {manifest.steps_per_epoch} per epoch")
+        if len(vals) != steps // VAL_INTERVAL or not vals:
+            fail(f"{stage} validations: {vals}")
+        samples = sorted((stage_dir / "samples").glob("step_*/*.wav"))
+        if len(samples) != 2 * len(vals):
+            fail(f"{stage} eval samples written: {[str(p) for p in samples]}")
+        if (len(names) != min(MAX_KEEP, steps // SAVE_INTERVAL + 1)
+                or names[-1] != f"checkpoint_{epochs[stage]:05d}_step_{steps:09d}"
+                or read_manifest(str(stage_dir / names[-1])) != manifest):
+            fail(f"{stage} checkpoints not pruned to {MAX_KEEP} ending at the stage's "
+                 f"manifest: {names}")
+        at, n = spans[stage]
+        rows = trainer.step_metrics[at: at + n]
+        per_stage[stage] = {
+            "steps": steps, "B": len(trainer.batches[at]), "validations": vals,
+            "checkpoints": names, "first": rows[0], "last": rows[-1]}
+        shown = [(v["step"], {k: round(x, 4) for k, x in v.items()
+                              if k not in ("stage", "step", "batches")}) for v in vals]
+        log(f"train {stage}: {steps} steps at B={len(trainer.batches[at])}; validation "
+            f"{shown}; checkpoints {names}; first / last step {rows[0]} / {rows[-1]}")
+    # the frozen modules leave each later stage as they entered it
+    ends = {stage: saved_models(torch, out / stage / last[stage]) for stage in STAGES}
+    frozen = {"textual": [k for k in ends["acoustic"] if k not in
+                          STAGE_TRAIN_MODELS["textual"] + STAGE_DISCRIMINATORS["textual"]],
+              "duration": [k for k in ends["textual"] if k not in
+                           STAGE_TRAIN_MODELS["duration"] + STAGE_DISCRIMINATORS["duration"]]}
+    before = {"textual": "acoustic", "duration": "textual"}
+    for stage, names in frozen.items():
+        for name in names:
+            a, b = ends[before[stage]][name], ends[stage][name]
+            if not all(torch.equal(a[k], b[k]) for k in a):
+                fail(f"{name}, frozen in {stage}, moved")
+    log(f"train: {sum(p['steps'] for p in per_stage.values())} steps in {wall:.1f} s; "
+        f"CTC launches {launches}; frozen modules bitwise across both hand-offs")
 
-    resumed, r_wall, _ = acoustic_train(torch, cfg, model_cfg, work / "acoustic_resumed",
-                                        "--checkpoint", str(stage_dir / names[0]))
-    n = len(resumed.step_metrics)
-    ref = trainer.step_metrics[-n:]
-    rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
-              for a, b in zip(resumed.step_metrics, ref) for k in b)
-    saved = [torch.load(p, map_location="cpu", weights_only=True)["models"] for p in (
-        stage_dir / names[-1] / "state.pt",
-        work / "acoustic_resumed" / "acoustic" / names[-1] / "state.pt",
-        stage_dir / names[0] / "state.pt")]
-    ratios = {}
-    for module in saved[0]:
-        err = torch.sqrt(sum(((saved[0][module][k].float() - saved[1][module][k].float()) ** 2)
-                             .sum() for k in saved[0][module]))
-        move = torch.sqrt(sum(((saved[0][module][k].float() - saved[2][module][k].float()) ** 2)
-                              .sum() for k in saved[0][module]))
-        ratios[module] = float(err / move.clamp_min(1e-30))
-    if (resumed.batches != trainer.batches[-n:] or not 0 < n < steps
-            or rel > ACOUSTIC_RESUME_RTOL or max(ratios.values()) > WEIGHT_SPAN_RTOL):
-        fail(f"acoustic resume from {names[0]}: {n} steps, same batches "
-             f"{resumed.batches == trainer.batches[-n:]}, metric rel err {rel:.3e} "
-             f"(<= {ACOUSTIC_RESUME_RTOL}), weights/move {ratios} (<= {WEIGHT_SPAN_RTOL})")
-    log(f"acoustic resume from {names[0]}: {n} steps in {r_wall:.1f} s; metric rel err "
-        f"{rel:.2e}; weight error / move {ratios}")
-    return trainer, {"wall_s": wall, "steps": steps, "B": batch_size,
-                     "ctc_launches": launches,
-                     "validations": trainer.validations, "checkpoints": names,
-                     "metrics": trainer.step_metrics, "resume_from": names[0],
-                     "resume_steps": n, "resume_wall_s": r_wall,
-                     "resume_metric_max_rel_err": rel,
-                     "resume_weight_err_over_move": ratios}
+    a_names = per_stage["acoustic"]["checkpoints"]
+    resumed, r_wall, _ = stage_train(torch, cfg, model_cfg, work / "acoustic_resumed",
+                                     "acoustic", "--checkpoint",
+                                     str(out / "acoustic" / a_names[0]))
+    r_n, r_rel, r_ratios = compare_runs(
+        torch, trainer, resumed, out, work / "acoustic_resumed", "acoustic",
+        saved_models(torch, out / "acoustic" / a_names[0]))
+    log(f"resume from acoustic/{a_names[0]}: {r_n} steps in {r_wall:.1f} s through the "
+        f"three stages; metric rel err {r_rel:.2e}; weight error / move {r_ratios}")
+
+    restarted, s_wall, _ = stage_train(torch, cfg, model_cfg, work / "textual_started",
+                                       "textual", "--checkpoint",
+                                       str(out / "acoustic" / last["acoustic"]))
+    textual_start = saved_models(torch, work / "textual_started" / "textual"
+                                 / checkpoint_dirs(work / "textual_started" / "textual")[-1])
+    for name in frozen["textual"]:
+        a = ends["acoustic"][name]
+        if not all(torch.equal(a[k], textual_start[name][k]) for k in a):
+            fail(f"--stage textual from the acoustic checkpoint: {name} is not the "
+                 "checkpoint's")
+    s_n, s_rel, s_ratios = compare_runs(
+        torch, trainer, restarted, out, work / "textual_started", "textual",
+        ends["acoustic"])
+    log(f"--stage textual from acoustic/{last['acoustic']}: the acoustic modules "
+        f"bitwise; {s_n} steps in {s_wall:.1f} s; metric rel err {s_rel:.2e}; weight "
+        f"error / move {s_ratios}")
+
+    t_names = per_stage["textual"]["checkpoints"]
+    t_resumed, t_wall, _ = stage_train(torch, cfg, model_cfg, work / "textual_resumed",
+                                       "textual", "--checkpoint",
+                                       str(out / "textual" / t_names[0]))
+    t_n, t_rel, t_ratios = compare_runs(
+        torch, trainer, t_resumed, out, work / "textual_resumed", "textual",
+        saved_models(torch, out / "textual" / t_names[0]))
+    log(f"resume from textual/{t_names[0]}: {t_n} steps in {t_wall:.1f} s; metric rel "
+        f"err {t_rel:.2e}; weight error / move {t_ratios}")
+    acoustic_rows = trainer.step_metrics[: per_stage["acoustic"]["steps"]]
+    return trainer, {"wall_s": wall, "steps": per_stage["acoustic"]["steps"],
+                     "B": per_stage["acoustic"]["B"], "ctc_launches": launches,
+                     "validations": per_stage["acoustic"]["validations"],
+                     "checkpoints": a_names, "metrics": acoustic_rows,
+                     "stages": per_stage,
+                     "resume_from": a_names[0], "resume_steps": r_n,
+                     "resume_wall_s": r_wall, "resume_metric_max_rel_err": r_rel,
+                     "resume_weight_err_over_move": r_ratios,
+                     "textual_start_steps": s_n, "textual_start_wall_s": s_wall,
+                     "textual_start_metric_max_rel_err": s_rel,
+                     "textual_start_weight_err_over_move": s_ratios,
+                     "textual_resume_from": t_names[0], "textual_resume_steps": t_n,
+                     "textual_resume_wall_s": t_wall,
+                     "textual_resume_metric_max_rel_err": t_rel,
+                     "textual_resume_weight_err_over_move": t_ratios}
 
 
 def acoustic_batch(torch, data, b, seconds=None):
@@ -1806,12 +1940,12 @@ def acoustic_batch(torch, data, b, seconds=None):
     return batch
 
 
-def acoustic_state(torch, mc, device, seed=0):
-    from stylish_tts_torch.models import build_acoustic_models
-    from stylish_tts_torch.trainer.state import create_acoustic_train_state
+def stage_state(torch, mc, device, stage="acoustic", seed=0):
+    from stylish_tts_torch.models import build_models
+    from stylish_tts_torch.trainer.state import create_stage_train_state
 
     torch.manual_seed(seed)
-    return create_acoustic_train_state(build_acoustic_models(mc), device, seed=seed)
+    return create_stage_train_state(build_models(mc), device, stage, seed=seed)
 
 
 def acoustic_card_vs_cpu(torch, data):
@@ -1831,7 +1965,7 @@ def acoustic_card_vs_cpu(torch, data):
     prior = torch.tanh(0.3 * torch.randn(batch.audio_gt.shape, generator=gen))
     results = {}
     for device in ("cpu", "cuda"):
-        state = acoustic_state(torch, mc, device)
+        state = stage_state(torch, mc, device)
         start = {n: {k: v.cpu().clone() for k, v in m.state_dict().items()}
                  for n, m in state.models.items()}
         state.wavlm = random_wavlm(0).to(device).eval().requires_grad_(False)
@@ -1888,7 +2022,7 @@ def acoustic_moves_and_times(torch, data, card):
 
     mc = ModelConfig()
     batch = batch_to_device(acoustic_batch(torch, data, ACOUSTIC_B), "cuda")
-    state = acoustic_state(torch, mc, "cuda")
+    state = stage_state(torch, mc, "cuda")
     state.wavlm = random_wavlm(0).cuda().eval().requires_grad_(False)
     ctx = StepContext(mc, Config().loss_weight.model_dump(), NormalizationStats(),
                       stage_steps=10_000, slm_loss_fn=wavlm_loss, mixed_precision=True)
@@ -2006,17 +2140,262 @@ def acoustic_moves_and_times(torch, data, card):
             **{k: v for k, v in profile.items() if k != "top_kernels"}}
 
 
-def phase_acoustic(torch, work: Path, card: str):
-    """The acoustic stage on the front end's corpus and caches (phase 6's
-    directory): train and resume through the CLI, the card against the CPU,
-    training moves, times."""
+# the later stages' moves and times at full width: B, and the gate on the
+# stage's loss (textual: pitch + energy; duration: duration_ce) at the last
+# of the 20 steps against the first (PERF.md states the prediction)
+LATER_MOVES = {"textual": (16, 0.98), "duration": (32, 0.9)}
+LATER_LR = 1e-4
+# fixed non-uniform class weights for the duration steps held apart from
+# the trainer (the trainer's come from the corpus's alignments)
+DURATION_CLASS_WEIGHTS = (0.5, 2.0)
+
+
+def later_step(torch, ctx, stage, device):
+    from stylish_tts_torch.trainer.steps import make_duration_step, make_textual_step
+
+    if stage == "textual":
+        return make_textual_step(ctx)
+    return make_duration_step(ctx, torch.linspace(*DURATION_CLASS_WEIGHTS, 16, device=device))
+
+
+def later_card_vs_cpu(torch, data):
+    """One full-width fp32 textual step and one duration step (parity
+    switches: no dropout, the frozen speech predictor on an injected
+    broadband excitation) from the same seeded weights on the card and on
+    the CPU: every metric, and each trained module's updated weights."""
+    import numpy as np
+
+    from stylish_tts_torch.config import Config, ModelConfig
+    from stylish_tts_torch.models import STAGE_DISCRIMINATORS, STAGE_TRAIN_MODELS
+    from stylish_tts_torch.trainer.normalization import NormalizationStats
+    from stylish_tts_torch.trainer.steps import StepContext, batch_to_device
+
+    mc = ModelConfig()
+    batch = acoustic_batch(torch, data, 2, seconds=1.0)
+    gen = torch.Generator().manual_seed(3)
+    prior = torch.tanh(0.3 * torch.randn(batch.audio_gt.shape, generator=gen))
+    report = {}
+    for stage in ("textual", "duration"):
+        trained = STAGE_TRAIN_MODELS[stage] + STAGE_DISCRIMINATORS[stage]
+        results = {}
+        for device in ("cpu", "cuda"):
+            state = stage_state(torch, mc, device, stage)
+            start = {n: {k: v.cpu().clone() for k, v in state.models[n].state_dict().items()}
+                     for n in trained}
+            ctx = StepContext(mc, Config().loss_weight.model_dump(), NormalizationStats(),
+                              stage_steps=100, parity_deterministic=True,
+                              parity_prior=prior.to(device))
+            t0 = time.time()
+            metrics = later_step(torch, ctx, stage, device)(state, batch_to_device(batch, device))
+            metrics = {k: float(v) for k, v in metrics.items()}
+            results[device] = (metrics, {n: {k: v.cpu() for k, v in
+                                             state.models[n].state_dict().items()}
+                                         for n in trained}, time.time() - t0)
+        (m_cpu, w_cpu, cpu_s), (m_card, w_card, _) = results["cpu"], results["cuda"]
+        metric_rel = {k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-12) for k in m_cpu}
+        ratios, worst_abs = {}, 0.0
+        for n in trained:
+            err = sum(float(((w_card[n][k] - r) ** 2).sum()) for k, r in w_cpu[n].items())
+            move = sum(float(((r - start[n][k]) ** 2).sum()) for k, r in w_cpu[n].items())
+            ratios[n] = (err / move) ** 0.5 if move > 0 else float("inf")
+            worst_abs = max(worst_abs, max(float((w_card[n][k] - r).abs().max())
+                                           for k, r in w_cpu[n].items()))
+        if (max(metric_rel.values()) > CARD_CPU_METRIC_RTOL
+                or max(ratios.values()) > CARD_CPU_WEIGHT_RTOL or worst_abs > CARD_CPU_MAX_ABS
+                or not all(np.isfinite(list(m_card.values())))):
+            fail(f"{stage} step, card vs CPU: metrics rel {metric_rel} (<= "
+                 f"{CARD_CPU_METRIC_RTOL}); weights: error / move {ratios} (<= "
+                 f"{CARD_CPU_WEIGHT_RTOL}), max abs {worst_abs:.2e} (<= {CARD_CPU_MAX_ABS})")
+        log(f"{stage} step card vs CPU (fp32, B=2, {batch.audio_gt.shape[1]} samples): "
+            f"metrics max rel {max(metric_rel.values()):.2e} "
+            f"({max(metric_rel, key=metric_rel.get)}), weights error / move "
+            f"{ {k: round(v, 5) for k, v in ratios.items()} }, max abs {worst_abs:.2e}; "
+            f"CPU step {cpu_s:.1f} s")
+        report[stage] = {"metric_rel_err": metric_rel, "weight_err_over_move": ratios,
+                         "weight_max_abs_err": worst_abs, "cpu_step_s": cpu_s}
+    return report
+
+
+def frozen_speech_ms(torch, ctx, state, batch):
+    """The textual step's frozen path alone at its shapes: the speech
+    predictor's forward on the curves, the mel loss and the backward to
+    the curves (no weight gradient), bf16 autocast, median ms."""
+    from stylish_tts_torch import losses as L
+    from stylish_tts_torch.trainer.steps import _acoustic_features
+
+    sp, se = state.models["speech_predictor"], state.models["speech_style_encoder"]
+    sp.eval()
+    se.eval()
+    sp.requires_grad_(False)
+    se.requires_grad_(False)
+    mel, style_mel, energy, pitch, alignment, frames = _acoustic_features(ctx, batch)
+    audio_t = batch.audio_gt[:, : frames * ctx.mc.hop_length]
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        style = se(style_mel)
+    feats_t = ctx.multi_spec(audio_t)
+    curves = [pitch.clone().requires_grad_(True), energy.clone().requires_grad_(True)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def call():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            audio = sp(batch.text, batch.text_lengths, alignment, curves[0], curves[1],
+                       (pitch > 20.0).float(), style, curves[0], generator=gen).audio.float()
+            loss = L.spectral_convergence_loss(feats_t.mel, ctx.multi_spec(audio).mel)
+        loss.backward()
+        for c in curves:
+            c.grad = None
+
+    return median_ms(torch, call, n=N_ACOUSTIC_TIMED, warmup=1, sleep=False)
+
+
+def later_moves_and_times(torch, data, card):
+    """Per later stage: 20 bf16 steps on one fixed corpus batch from seeded
+    weights (metrics finite, the lr multiplier in [0.01, 4], the stage's
+    loss falling by the stated margin), each timed; then one step's device
+    time by kernel group under ``torch.profiler`` (forward scopes: the
+    frozen speech predictor, the discriminator, the DSP), its launches,
+    busy share and peak memory; for textual the frozen path's forward and
+    backward alone."""
+    import numpy as np
+    from torch.autograd import DeviceType
+
+    from stylish_tts_torch.config import Config, ModelConfig
+    from stylish_tts_torch.dsp import mel as mel_lib
+    from stylish_tts_torch.dsp import multi_spectrogram
+    from stylish_tts_torch.trainer.normalization import NormalizationStats
+    from stylish_tts_torch.trainer.steps import StepContext, batch_to_device
+
+    mc = ModelConfig()
+    report = {}
+    for stage, (b, gate) in LATER_MOVES.items():
+        batch = batch_to_device(acoustic_batch(torch, data, b), "cuda")
+        state = stage_state(torch, mc, "cuda", stage)
+        ctx = StepContext(mc, Config().loss_weight.model_dump(), NormalizationStats(),
+                          stage_steps=10_000, base_lr=LATER_LR, mixed_precision=True)
+        step = later_step(torch, ctx, stage, "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, step_ms = [], []
+        for _ in range(MOVE_STEPS):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            m = step(state, batch)
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            metrics.append({k: float(v) for k, v in m.items()})
+        peak = torch.cuda.max_memory_allocated()
+
+        def loss_of(m):
+            return m["pitch"] + m["energy"] if stage == "textual" else m["duration_ce"]
+
+        for m in metrics:
+            mults = [v for k, v in m.items() if k.endswith("_lr_mult")]
+            if not all(np.isfinite(list(m.values()))) or not all(
+                    0.01 - 1e-6 <= v <= 4 + 1e-6 for v in mults):
+                fail(f"{stage} moves: metrics {m}")
+        first, last = loss_of(metrics[0]), loss_of(metrics[-1])
+        if not last < gate * first:
+            fail(f"{stage} moves: loss {first:.4f} -> {last:.4f}, not below {gate} x the first")
+        median_step = statistics.median(step_ms[2:])
+        frozen_ms = frozen_speech_ms(torch, ctx, state, batch) if stage == "textual" else None
+
+        wrapped = []
+
+        def scope(obj, attr, name):
+            fn = getattr(obj, attr)
+
+            def wrapper(*args, **kwargs):
+                with torch.profiler.record_function("scope." + name):
+                    return fn(*args, **kwargs)
+            setattr(obj, attr, wrapper)
+            wrapped.append((obj, attr, fn))
+
+        disc = "pitch_disc" if stage == "textual" else "dur_disc"
+        scope(state.models[disc], "forward", "discriminators")
+        if stage == "textual":
+            scope(state.models["speech_predictor"], "forward", "frozen speech predictor")
+        scope(multi_spectrogram.MultiSpectrogram, "single", "DSP")
+        scope(mel_lib.MelSpectrogram, "__call__", "DSP")
+        activities = [torch.profiler.ProfilerActivity.CPU,
+                      torch.profiler.ProfilerActivity.CUDA]
+        try:
+            with torch.profiler.profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                step(state, batch)
+                torch.cuda.synchronize()
+                traced_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            for obj, attr, fn in reversed(wrapped):
+                setattr(obj, attr, fn)
+
+        def scope_of(evt):
+            while evt is not None:
+                if evt.name.startswith("scope."):
+                    return evt.name[len("scope."):]
+                evt = evt.cpu_parent
+            return None
+
+        groups, kernels, launches = {}, {}, 0
+        for evt in prof.events():
+            if evt.device_type != DeviceType.CPU:
+                continue
+            sc = scope_of(evt)
+            for k in evt.kernels:
+                ms = k.duration / 1e3
+                g = groups.setdefault(acoustic_group(k.name, sc), {"ms": 0.0, "launches": 0})
+                g["ms"] += ms
+                g["launches"] += 1
+                row = kernels.setdefault(k.name, {"ms": 0.0, "launches": 0})
+                row["ms"] += ms
+                row["launches"] += 1
+                launches += 1
+        device_ms = sum(g["ms"] for g in groups.values())
+        if not launches or device_ms <= 0:
+            fail(f"the profiler trace of the {stage} step holds no device time")
+        for g in groups.values():
+            g["share_of_device"] = g["ms"] / device_ms
+        top = sorted(kernels.items(), key=lambda kv: -kv[1]["ms"])[:40]
+        profile = {"card": card, "stage": stage, "B": b, "frames": int(batch.pitch.shape[1]),
+                   "tokens": int(batch.text.shape[1]), "lr": LATER_LR,
+                   "step_ms_median": median_step, "traced_wall_ms": traced_ms,
+                   "device_ms": device_ms, "busy_share": device_ms / median_step,
+                   "launches": launches, "peak_memory_bytes": peak,
+                   "frozen_speech_ms": frozen_ms,
+                   "frozen_speech_share": frozen_ms / median_step if frozen_ms else None,
+                   "loss_first_last": [first, last], "groups": groups,
+                   "top_kernels": [{"name": n, **v} for n, v in top]}
+        OUT.mkdir(exist_ok=True)
+        (OUT / f"profile_{stage}_step.json").write_text(json.dumps(profile, indent=1))
+        for name, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms"]):
+            log(f"{stage} step device time: {g['ms']:.3f} ms x{g['launches']} {name}")
+        log(f"{stage} step B={b} F={profile['frames']} bf16: {median_step:.2f} ms "
+            f"(median of {MOVE_STEPS - 2}), device {device_ms:.2f} ms, busy share "
+            f"{device_ms / median_step:.3f}, {launches} launches, peak "
+            f"{peak / 2**30:.2f} GiB; loss {first:.4f} -> {last:.4f} over {MOVE_STEPS} "
+            f"steps" + (f"; frozen speech predictor fwd + bwd alone {frozen_ms:.2f} ms"
+                        if frozen_ms else ""))
+        report[stage] = {"metrics": metrics, "step_ms": step_ms,
+                         **{k: v for k, v in profile.items() if k != "top_kernels"}}
+        del state, batch, step
+        torch.cuda.empty_cache()
+    return report
+
+
+def phase_stages(torch, work: Path, card: str):
+    """The three stages of ``train`` on the front end's corpus and caches
+    (phase 6's directory): train, resume and restart through the CLI, the
+    card against the CPU, training moves, times."""
     data = work / "data"
     t0 = time.time()
     _, report = acoustic_stage(torch, data, work)
     report["card_vs_cpu"] = acoustic_card_vs_cpu(torch, data)
     report["moves"] = acoustic_moves_and_times(torch, data, card)
+    report["later_card_vs_cpu"] = later_card_vs_cpu(torch, data)
+    report["later_moves"] = later_moves_and_times(torch, data, card)
     report["phase_wall_s"] = time.time() - t0
-    log(f"acoustic phase: {report['phase_wall_s']:.1f} s")
+    log(f"training phase: {report['phase_wall_s']:.1f} s")
     return report
 
 
@@ -2063,7 +2442,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_front_") as tmp:
         front = phase_front_end(torch, Path(tmp), card)
-        acoustic = phase_acoustic(torch, Path(tmp), card)
+        acoustic = phase_stages(torch, Path(tmp), card)
     launches = front["train_align"]["launches"]
     if not all(launches.values()):
         fail(f"a CTC kernel of the front end's train-align never launched: {launches}")
@@ -2139,6 +2518,27 @@ def main() -> int:
         "busy_share": mv["busy_share"], "launches": mv["launches"],
         "peak_memory_gib": mv["peak_memory_bytes"] / 2**30, "wavlm_share": mv["wavlm_share"],
         "groups_ms": {g: v["ms"] for g, v in mv["groups"].items()}}}), flush=True)
+    stages, lmv, lcc = acoustic["stages"], acoustic["later_moves"], acoustic["later_card_vs_cpu"]
+    print(json.dumps({"later_stages": {
+        "card": card, "ctc_launches": acoustic["ctc_launches"],
+        "steps": {k: [v["steps"], v["B"]] for k, v in stages.items()},
+        "validations": {k: [{m: x for m, x in v.items() if m not in ("stage", "batches")}
+                            for v in stages[k]["validations"]]
+                        for k in ("textual", "duration")},
+        "textual_start_metric_max_rel_err": acoustic["textual_start_metric_max_rel_err"],
+        "textual_resume_metric_max_rel_err": acoustic["textual_resume_metric_max_rel_err"],
+        "textual_resume_weight_err_over_move": max(
+            acoustic["textual_resume_weight_err_over_move"].values()),
+        **{f"{s}_card_vs_cpu_metric_max_rel_err": max(lcc[s]["metric_rel_err"].values())
+           for s in lcc},
+        **{f"{s}_card_vs_cpu_weight_err_over_move": max(lcc[s]["weight_err_over_move"].values())
+           for s in lcc},
+        **{f"{s}_{k}": lmv[s][k] for s in lmv for k in (
+            "B", "step_ms_median", "device_ms", "busy_share", "launches", "loss_first_last")},
+        **{f"{s}_peak_memory_gib": lmv[s]["peak_memory_bytes"] / 2**30 for s in lmv},
+        "textual_frozen_speech_share": lmv["textual"]["frozen_speech_share"],
+        **{f"{s}_groups_ms": {g: v["ms"] for g, v in lmv[s]["groups"].items()} for s in lmv}}}),
+        flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

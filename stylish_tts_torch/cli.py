@@ -2,9 +2,9 @@
 (training) and ``python -m stylish_tts_torch.cli_tts`` (synthesis).
 
 Counterpart of ``stylish_tts_tpu/cli.py``; ported so far: ``pitch``
-(YIN), ``train-align`` (with ``--checkpoint``), ``train --stage acoustic``
-(with ``--checkpoint`` and ``--reset-stage``), ``align``,
-``align-textgrid`` and ``speak``. Every command runs on ``--device cuda``
+(YIN), ``train-align`` (with ``--checkpoint``), ``train --stage
+acoustic|textual|duration`` (with ``--checkpoint`` and ``--reset-stage``),
+``align``, ``align-textgrid`` and ``speak``. Every command runs on ``--device cuda``
 unless told ``--device cpu``, and raises where CUDA is missing.
 """
 
@@ -26,6 +26,7 @@ def train_cli():
 
 
 DEVICE_HELP = "torch device; 'cpu' runs on the CPU (the plain CTC instead of the kernels)"
+RECORD_HELP = "keep every step's host metrics and wav paths on the returned Trainer"
 
 
 @train_cli.command("train-align")
@@ -35,13 +36,16 @@ DEVICE_HELP = "torch device; 'cpu' runs on the CPU (the plain CTC instead of the
 @click.option("--checkpoint", default=None, type=click.Path(exists=True),
               help="checkpoint directory to resume from")
 @click.option("--device", default="cuda", show_default=True, help=DEVICE_HELP)
-def train_align(config_path, model_config_path, out_dir, checkpoint, device):
+@click.option("--record-steps", is_flag=True, hidden=True, help=RECORD_HELP)
+def train_align(config_path, model_config_path, out_dir, checkpoint, device,
+                record_steps):
     """Alignment (CTC) pretraining; saves alignment_model.safetensors.
     Returns the Trainer to callers that run the command in-process."""
     from .trainer.loop import Trainer
 
     config, model_config = _load_configs(config_path, model_config_path)
-    trainer = Trainer(config, model_config, out_dir, device=device)
+    trainer = Trainer(config, model_config, out_dir, device=device,
+                      record_steps=record_steps)
     trainer.train("alignment", checkpoint=checkpoint)
     return trainer
 
@@ -52,25 +56,26 @@ def train_align(config_path, model_config_path, out_dir, checkpoint, device):
 @click.option("--out", "out_dir", required=True, type=click.Path())
 @click.option("--stage", default="acoustic",
               type=click.Choice(["acoustic", "textual", "duration"]),
-              help="only 'acoustic' is ported; the others raise")
+              help="stage to start at; the run goes on through the later ones")
 @click.option("--checkpoint", default=None, type=click.Path(exists=True),
-              help="acoustic checkpoint directory to resume from")
+              help="checkpoint directory of any of these stages: the same stage "
+                   "resumes, another one gives its weights to this stage")
 @click.option("--reset-stage", is_flag=True, default=False,
               help="load the checkpoint's weights but restart the stage's counters")
 @click.option("--device", default="cuda", show_default=True,
               help="torch device; 'cpu' runs on the CPU (float32)")
+@click.option("--record-steps", is_flag=True, hidden=True, help=RECORD_HELP)
 def train(config_path, model_config_path, out_dir, stage, checkpoint, reset_stage,
-          device):
-    """Main training, the acoustic stage (the JAX command goes on to textual
-    and duration; they are not ported yet, so the run stops after acoustic).
-    The JAX ``--profile`` flag (a jax.profiler trace) has no counterpart.
-    Returns the Trainer to callers that run the command in-process."""
+          device, record_steps):
+    """Main training: acoustic, then textual, then duration, from the given
+    stage on. The JAX ``--profile`` flag (a jax.profiler trace) has no
+    counterpart. Returns the Trainer to callers that run the command
+    in-process."""
     from .trainer.loop import Trainer
 
-    if stage != "acoustic":
-        raise click.ClickException(f"--stage {stage} is not ported yet; use acoustic")
     config, model_config = _load_configs(config_path, model_config_path)
-    trainer = Trainer(config, model_config, out_dir, device=device)
+    trainer = Trainer(config, model_config, out_dir, device=device,
+                      record_steps=record_steps)
     trainer.train(stage, checkpoint=checkpoint, reset_stage=reset_stage)
     return trainer
 

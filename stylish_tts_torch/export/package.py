@@ -128,7 +128,8 @@ class InferencePackage:
             module.load_state_dict(module_from_jax(module, params[name]))
             module.to(self.device).eval()
         self.text_cleaner = TextCleaner(mc.symbol)
-        self.duration_processor = DurationProcessor()
+        self.duration_processor = DurationProcessor(
+            mc.duration_predictor.duration_classes, mc.duration_predictor.max_duration)
 
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(np.array(x), dtype=dtype, device=self.device)

@@ -1,6 +1,6 @@
-"""The acoustic stage's losses.
+"""The losses of the acoustic, textual and duration stages.
 
-Counterpart of the acoustic part of ``stylish_tts_tpu/losses.py``:
+Counterpart of ``stylish_tts_tpu/losses.py``:
 
 * multi-resolution spectral convergence over the log-mels ("mel");
 * the anti-wrapping multi-phase loss ("multi_phase");
@@ -9,11 +9,13 @@ Counterpart of the acoustic part of ``stylish_tts_tpu/losses.py``:
 * the gap-aware discriminator LR multiplier;
 * the loss-normalised ``backwards_loss`` (each term but ``generator`` and
   ``align_loss`` enters as w * L / stop_grad(L), unit magnitude) and the
-  raw weighted ``reporting_total``.
+  raw weighted ``reporting_total``;
+* the prosody and duration losses: ``smooth_l1`` and
+  ``pitch_energy_losses`` (textual), the class-weighted
+  ``duration_ce_loss`` and ``masked_smooth_l1_per_sequence`` (duration);
+  their targets are stop-gradient.
 
-``magphase_loss`` (ringformer), ``pitch_energy_losses``,
-``duration_ce_loss`` and ``masked_smooth_l1_per_sequence`` belong to later
-stages and are not ported yet.
+``magphase_loss`` (ringformer) is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import math
 from typing import Dict, List, Sequence
 
 import torch
+
+from .models.common import sequence_mask
 
 TWO_PI = 2.0 * math.pi
 
@@ -153,3 +157,53 @@ def reporting_total(metrics: Dict[str, torch.Tensor], weights: Dict[str, float])
     for key, value in metrics.items():
         total = total + weights.get(key, 1.0) * value
     return total
+
+
+# --------------------------------------------------------------------------
+# Prosody / duration losses
+# --------------------------------------------------------------------------
+
+
+def _smooth_l1_elem(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    diff = pred - target.detach()
+    abs_diff = torch.abs(diff)
+    return torch.where(abs_diff < 1.0, 0.5 * diff * diff, abs_diff - 0.5)
+
+
+def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Mean Huber loss (delta 1) against a stop-gradient target."""
+    return torch.mean(_smooth_l1_elem(pred, target))
+
+
+def pitch_energy_losses(pred_pitch, pitch, pred_energy, energy) -> Dict[str, torch.Tensor]:
+    """Smooth-L1 of each curve plus smooth-L1 of its frame-to-frame delta."""
+    def curve(pred, target):
+        return smooth_l1(pred, target) + smooth_l1(torch.diff(pred, dim=-1),
+                                                   torch.diff(target, dim=-1))
+
+    return {"pitch": curve(pred_pitch, pitch), "energy": curve(pred_energy, energy)}
+
+
+def duration_ce_loss(pred: torch.Tensor, target_classes: torch.Tensor,
+                     text_lengths: torch.Tensor, class_weights: torch.Tensor) -> torch.Tensor:
+    """Per-sequence class-weighted cross entropy, sum(w * nll) / sum(w) over
+    the sequence's tokens, averaged over the batch. ``pred`` (B, T, classes)
+    logits, ``target_classes`` (B, T)."""
+    logz = torch.log_softmax(pred, dim=-1)
+    target = target_classes.long()
+    picked = torch.gather(logz, -1, target[..., None])[..., 0]
+    w = class_weights.to(logz)[target]
+    mask = sequence_mask(text_lengths, pred.shape[1]).to(torch.float32)
+    num = torch.sum(-picked * w * mask, dim=1)
+    den = torch.sum(w * mask, dim=1) + 1e-9
+    return torch.mean(num / den)
+
+
+def masked_smooth_l1_per_sequence(pred: torch.Tensor, target: torch.Tensor,
+                                  lengths: torch.Tensor) -> torch.Tensor:
+    """Smooth-L1 averaged over each sequence's valid positions, then over
+    the batch."""
+    mask = sequence_mask(lengths, pred.shape[1]).to(torch.float32)
+    per_seq = torch.sum(_smooth_l1_elem(pred, target) * mask, dim=1) / torch.clamp_min(
+        torch.sum(mask, dim=1), 1.0)
+    return torch.mean(per_seq)

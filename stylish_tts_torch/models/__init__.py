@@ -1,13 +1,13 @@
 from .text_aligner import TextAligner
 from .models import (
-    ACOUSTIC_DISCRIMINATORS,
-    ACOUSTIC_TRAIN_MODELS,
     INFERENCE_MODELS,
-    build_acoustic_models,
+    STAGE_DISCRIMINATORS,
+    STAGE_TRAIN_MODELS,
     build_inference_models,
+    build_models,
     build_text_aligner,
 )
 
-__all__ = ["ACOUSTIC_DISCRIMINATORS", "ACOUSTIC_TRAIN_MODELS", "INFERENCE_MODELS",
-           "TextAligner", "build_acoustic_models", "build_inference_models",
+__all__ = ["INFERENCE_MODELS", "STAGE_DISCRIMINATORS", "STAGE_TRAIN_MODELS",
+           "TextAligner", "build_inference_models", "build_models",
            "build_text_aligner"]

@@ -198,12 +198,14 @@ class GRN(nn.Module):
 
 
 class AdaptiveDecoderBlock(nn.Module):
-    """AdaIN residual conv block. Its dropout rate is 0 wherever the ported
-    paths build it (the JAX default), so it is the identity in training too."""
+    """AdaIN residual conv block, with dropout after each leaky ReLU in
+    ``train()`` mode. The decoder builds it with rate 0 (the JAX default);
+    the pitch/energy heads with ``pitch_energy_predictor.dropout``."""
 
     def __init__(self, dim_in: int, dim_out: int, style_dim: int,
-                 kernel_size: int = 3):
+                 kernel_size: int = 3, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.norm1 = AdaptiveInstanceNorm(dim_in, style_dim)
         self.conv1 = Conv1d(dim_in, dim_out, kernel_size)
         self.norm2 = AdaptiveInstanceNorm(dim_out, style_dim)
@@ -212,11 +214,12 @@ class AdaptiveDecoderBlock(nn.Module):
             Conv1d(dim_in, dim_out, 1, bias=False) if dim_in != dim_out else None
         )
 
-    def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, style: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         h = F.leaky_relu(self.norm1(x, style), 0.2)
-        h = self.conv1(h)
+        h = self.conv1(dropout(h, self.dropout, self.training, generator))
         h = F.leaky_relu(self.norm2(h, style), 0.2)
-        h = self.conv2(h)
+        h = self.conv2(dropout(h, self.dropout, self.training, generator))
         res = x if self.shortcut is None else self.shortcut(x)
         return (h + res) / math.sqrt(2.0)
 

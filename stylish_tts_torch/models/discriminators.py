@@ -1,4 +1,4 @@
-"""GAN discriminators of the acoustic stage.
+"""GAN discriminators of the acoustic, textual and duration stages.
 
 Counterpart of ``stylish_tts_tpu/models/discriminators.py``
 (``SpecDiscriminator``, ``ContextFreeBlock``,
@@ -11,10 +11,14 @@ Counterpart of ``stylish_tts_tpu/models/discriminators.py``
   into 1024-sample windows at hop 512 -> strided conv stack, SE channel
   attention, temporal and spectral branches, fusion, two linear layers.
 
+* ``PitchDiscriminator``: 5 x (Conv1d, leaky ReLU 0.1) over stacked
+  prosody curves (B, C_in, T), each layer with a 1-channel score head of
+  the same kernel; ``pitch_disc`` (kernel 21, F0 and energy) and
+  ``dur_disc`` (kernel 5, durations).
+
 Each returns the list of per-layer score tensors (B, N) that the LSGAN /
-TPRLS losses take. ``PeriodDiscriminator``, ``MultiPeriodDiscriminator``
-(not built by ``build_model``) and ``PitchDiscriminator`` (textual and
-duration stages) are not ported yet.
+TPRLS losses take. ``PeriodDiscriminator`` and ``MultiPeriodDiscriminator``
+(not built by ``build_model``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -112,3 +116,24 @@ class ContextFreeDiscriminator(nn.Module):
         x = self.fusion(torch.cat([temporal, spectral], dim=1))
         x = self.last1(torch.relu(self.last0(x.transpose(1, 2))))  # (N, T', 1)
         return [x.reshape(b, -1)]
+
+
+class PitchDiscriminator(nn.Module):
+    """(B, in_channels, T) prosody curves -> 5 score tensors (B, T)."""
+
+    N_LAYERS = 5
+
+    def __init__(self, in_channels: int, dim_hidden: int = 64, kernel: int = 21):
+        super().__init__()
+        for i in range(self.N_LAYERS):
+            self.add_module(f"conv_{i}", Conv1d(in_channels if i == 0 else dim_hidden,
+                                                dim_hidden, kernel))
+            self.add_module(f"out_{i}", Conv1d(dim_hidden, 1, kernel))
+
+    def forward(self, y: torch.Tensor) -> List[torch.Tensor]:
+        x = y
+        results = []
+        for i in range(self.N_LAYERS):
+            x = F.leaky_relu(getattr(self, f"conv_{i}")(x), 0.1)
+            results.append(getattr(self, f"out_{i}")(x).flatten(1))
+        return results

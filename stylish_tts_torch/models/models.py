@@ -1,5 +1,4 @@
-"""Model registry: the part of ``stylish_tts_tpu/models/models.py`` the
-ported paths build.
+"""Model registry: the port's ``stylish_tts_tpu/models/models.py``.
 
 ``build_model`` builds the aligner with the TextAligner defaults
 (hidden 640) and never reads ``TextAlignerConfig.hidden_dim``; the port
@@ -7,8 +6,10 @@ keeps that behaviour. ``imported_weights`` turns the aligner's norms and
 the conformer's GroupNorm into the frozen affine norm of a folded torch
 checkpoint, as ``build_model`` does (it sets ``generator.norm_mode``),
 and makes the style encoders' spectral norm off (pre-folded kernels).
-``build_acoustic_models`` builds the modules the acoustic stage trains,
-by their registry names.
+``build_models`` builds the twelve modules of the three later stages by
+their registry names (``build_model`` less the aligner);
+``STAGE_TRAIN_MODELS`` and ``STAGE_DISCRIMINATORS`` are the JAX step
+module's tables of what each stage trains.
 """
 
 from __future__ import annotations
@@ -18,16 +19,24 @@ from typing import Dict
 from torch import nn
 
 from ..config import ModelConfig
-from .discriminators import ContextFreeDiscriminator, SpecDiscriminator
+from .discriminators import ContextFreeDiscriminator, PitchDiscriminator, SpecDiscriminator
 from .duration_predictor import DurationPredictor
 from .pitch_energy_predictor import PitchEnergyPredictor
 from .speech_predictor import SpeechPredictor
-from .style_encoder import MelStyleEncoder
+from .style_encoder import MelStyleEncoder, PitchStyleEncoder
 from .text_aligner import TextAligner
 
 INFERENCE_MODELS = ("duration_predictor", "pitch_energy_predictor", "speech_predictor")
-ACOUSTIC_TRAIN_MODELS = ("speech_predictor", "speech_style_encoder")
-ACOUSTIC_DISCRIMINATORS = ("mrd0", "mrd1", "mrd2", "disc")
+STAGE_TRAIN_MODELS = {
+    "acoustic": ("speech_predictor", "speech_style_encoder"),
+    "textual": ("pitch_energy_predictor", "pe_style_encoder"),
+    "duration": ("duration_predictor", "duration_style_encoder"),
+}
+STAGE_DISCRIMINATORS = {
+    "acoustic": ("mrd0", "mrd1", "mrd2", "disc"),
+    "textual": ("pitch_disc",),
+    "duration": ("dur_disc",),
+}
 
 
 def build_text_aligner(model_config: ModelConfig) -> TextAligner:
@@ -46,24 +55,34 @@ def build_inference_models(model_config: ModelConfig) -> Dict[str, nn.Module]:
         "duration_predictor": DurationPredictor(
             mc.style_dim, mc.inter_dim, mc.text_encoder, mc.duration_predictor),
         "pitch_energy_predictor": PitchEnergyPredictor(
-            mc.style_dim, mc.pitch_energy_predictor.inter_dim, mc.text_encoder),
+            mc.style_dim, mc.pitch_energy_predictor.inter_dim, mc.text_encoder,
+            dropout=mc.pitch_energy_predictor.dropout),
         "speech_predictor": SpeechPredictor(
             mc, norm_mode="affine" if mc.imported_weights else None),
     }
 
 
-def build_acoustic_models(model_config: ModelConfig) -> Dict[str, nn.Module]:
-    """``speech_predictor``, ``speech_style_encoder``, ``mrd0``-``mrd2`` and
-    ``disc``, with ``build_model``'s ``norm_mode`` and ``sn`` rules."""
+def build_models(model_config: ModelConfig) -> Dict[str, nn.Module]:
+    """Every module of ``build_model`` but the aligner, with its
+    ``norm_mode`` and ``sn`` rules."""
     mc = model_config
-    norm_mode = "affine" if mc.imported_weights else "group"
     se = mc.style_encoder
+    sn = not mc.imported_weights
+
+    def mel_style_encoder():
+        return MelStyleEncoder(se.n_mels, mc.style_dim, se.max_channels,
+                               se.skip_downsample, sn=sn)
+
     return {
-        "speech_predictor": SpeechPredictor(
-            mc, norm_mode="affine" if mc.imported_weights else None),
-        "speech_style_encoder": MelStyleEncoder(
-            se.n_mels, mc.style_dim, se.max_channels, se.skip_downsample,
-            sn=not mc.imported_weights),
+        **build_inference_models(mc),
+        "disc": ContextFreeDiscriminator(
+            norm_mode="affine" if mc.imported_weights else "group"),
         **{f"mrd{i}": SpecDiscriminator() for i in range(3)},
-        "disc": ContextFreeDiscriminator(norm_mode=norm_mode),
+        "speech_style_encoder": mel_style_encoder(),
+        "pe_style_encoder": PitchStyleEncoder(
+            se.n_mels, mc.style_dim, se.max_channels, se.skip_downsample,
+            coarse_multiplier=mc.coarse_multiplier, sn=sn),
+        "duration_style_encoder": mel_style_encoder(),
+        "pitch_disc": PitchDiscriminator(2, dim_hidden=64, kernel=21),
+        "dur_disc": PitchDiscriminator(1, dim_hidden=64, kernel=5),
     }

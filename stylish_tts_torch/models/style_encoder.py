@@ -1,17 +1,19 @@
-"""Mel reference style encoder.
+"""Mel and pitch reference style encoders.
 
 Counterpart of ``stylish_tts_tpu/models/style_encoder.py``
 (``SNConv2d``, ``_torch_avg_pool_half``, ``ResBlk2d``,
-``MelStyleEncoderCore``, ``MelStyleEncoder``): a 2D conv stem, 4
-spectrally-normalised residual downsample blocks, a 5x5 valid conv, a
-global average pool and a linear layer -> style vector.
+``MelStyleEncoderCore``, ``MelStyleEncoder``, ``PitchStyleEncoder``): a 2D
+conv stem, 4 spectrally-normalised residual downsample blocks, a 5x5 valid
+conv, a global average pool and a linear layer -> style vector. The pitch
+encoder (the textual stage's ``pe_style_encoder``) first stacks the
+resized F0 and energy curves under the mel rows and maps them back to the
+mel rows with a pointwise ``preconv``.
 
 The JAX module runs NHWC with H = mel, W = frames; here it is NCHW with
 the same H and W. Every conv holds its RAW kernel and normalises it in
 the forward with the stateless ``spectral_normalize`` (3 power iterations
 from the ones vector; ``sn=False`` for imported, pre-folded weights), so
-the weight bridge moves raw kernels both ways. ``PitchStyleEncoder``
-belongs to the textual stage and is not ported yet.
+the weight bridge moves raw kernels both ways.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import spectral_normalize
+from .common import Pointwise, spectral_normalize
 
 
 class SNConv2d(nn.Conv2d):
@@ -115,3 +117,37 @@ class MelStyleEncoder(nn.Module):
 
     def forward(self, style_mel: torch.Tensor) -> torch.Tensor:
         return self.core(style_mel[:, None])
+
+
+def resize_linear(x: torch.Tensor, size: int) -> torch.Tensor:
+    """(B, T) -> (B, size) by linear interpolation at half-pixel centres,
+    the edges held (``jax.image.resize(..., "linear", antialias=False)``)."""
+    return F.interpolate(x[:, None], size=size, mode="linear", align_corners=False)[:, 0]
+
+
+class PitchStyleEncoder(nn.Module):
+    """(style_mel (B, mel, frames'), pitch (B, T), energy (B, T)) -> style.
+
+    The curves go to ``T // coarse_multiplier`` points, then to the style
+    mel's frame count, and are stacked under its rows; ``preconv`` maps the
+    mel + 2 rows back to ``dim_in`` over the frames zero-padded by one on
+    each side (the reference's kernel-1, padding-1 conv: the two edge
+    columns are bias only)."""
+
+    def __init__(self, dim_in: int = 80, style_dim: int = 64, max_conv_dim: int = 384,
+                 skip_last_downsample: bool = True, coarse_multiplier: int = 1,
+                 sn: bool = True):
+        super().__init__()
+        self.coarse_multiplier = coarse_multiplier
+        self.preconv = Pointwise(dim_in + 2, dim_in)
+        self.core = MelStyleEncoderCore(dim_in, style_dim, max_conv_dim,
+                                        skip_last_downsample, sn=sn)
+
+    def forward(self, style_mel: torch.Tensor, pitch: torch.Tensor,
+                energy: torch.Tensor) -> torch.Tensor:
+        coarse = pitch.shape[-1] // self.coarse_multiplier
+        frames = style_mel.shape[-1]
+        curves = [resize_linear(resize_linear(c, coarse), frames) for c in (pitch, energy)]
+        x = torch.cat([style_mel, curves[0][:, None], curves[1][:, None]], dim=1)
+        x = self.preconv(F.pad(x, (1, 1)))
+        return self.core(x[:, None])

@@ -1,10 +1,15 @@
 """Duration class tables and the soft alignment.
 
 Counterpart of ``stylish_tts_tpu/ops/duration.py`` (``DurationProcessor``):
-16 ordinal duration classes, softmax-expected durations, and the
+16 ordinal duration classes with the fixed class -> duration and
+duration -> class tables, softmax-expected durations, and the
 parabolic-window soft alignment, softmax-normalised over ALL text rows of
 the bucket, padded rows included (so the text bucket is part of the
 function). ``total_frames`` is the frame bucket.
+
+``class_count`` and ``max_dur`` clip the inputs of the two table lookups,
+as in JAX; the tables stay fixed at 16 classes and durations up to 50, and
+an index past a table's end reads its last entry (a JAX gather clamps).
 """
 
 from __future__ import annotations
@@ -28,9 +33,29 @@ DUR_TO_CLASS = np.array(
 )
 
 
+def _lookup(table: np.ndarray, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` with out-of-range indices clamped to the table."""
+    t = torch.as_tensor(table, device=idx.device)
+    return t[idx.long().clamp(0, len(table) - 1)]
+
+
 class DurationProcessor:
-    """The inference half of the JAX ``DurationProcessor``; the class table
-    is fixed at 16 classes there too."""
+    def __init__(self, class_count: int = 16, max_dur: int = 50):
+        self.class_count = class_count
+        self.max_dur = max_dur
+
+    def class_to_dur_hard(self, classes: torch.Tensor) -> torch.Tensor:
+        return _lookup(CLASS_TO_DUR, torch.clamp(classes, 0, self.class_count - 1))
+
+    def dur_to_class(self, durs: torch.Tensor) -> torch.Tensor:
+        """Durations (frames, int or float; a float is clipped, then
+        truncated) -> ordinal class ids (int32)."""
+        durs = torch.clamp(durs, 1, self.max_dur).to(torch.int32)
+        return _lookup(DUR_TO_CLASS, durs)
+
+    def align_to_class(self, alignment: torch.Tensor) -> torch.Tensor:
+        """(..., frames) alignment rows -> the class of each row's sum."""
+        return self.dur_to_class(torch.clamp(alignment.sum(dim=-1), 1, self.max_dur))
 
     def class_to_dur_soft(self, softdur: torch.Tensor) -> torch.Tensor:
         """(..., classes) softmax weights -> expected duration."""

@@ -4,11 +4,13 @@ Directory naming ``checkpoint_{epoch:05d}_step_{step:09d}`` and the JSON
 sidecars (``manifest.json``, ``config.json``, ``model_config.json``,
 ``normalization.json``) are the JAX package's. The tensor state is the
 port's own: ``state.pt``, the stage state's ``state_dict()`` (``TrainState``
-for alignment, ``AcousticTrainState`` for acoustic) written with
+for alignment, ``StageTrainState`` for the later stages) written with
 ``torch.save`` and read back with ``weights_only=True`` (the JAX package
 writes an orbax tree, which the port does not read). Resume semantics
 live in ``trainer/loop.py``: same stage -> fast-forward the sampler by
-``current_step``; another stage -> fresh counters.
+``current_step``; another stage -> fresh counters. Any later stage's
+checkpoint loads into ``StageTrainState``, also an acoustic one that holds
+only the acoustic stage's six modules (the rest keep their init).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 
 from ..config import Config, ModelConfig
 from .normalization import NormalizationStats
-from .state import AcousticTrainState, TrainState
+from .state import StageTrainState, TrainState
 
 STATE_FILE = "state.pt"
 
@@ -55,7 +57,7 @@ def checkpoint_dir_name(epoch: int, step: int) -> str:
 
 def save_checkpoint(
     out_dir: str,
-    state: TrainState | AcousticTrainState,
+    state: TrainState | StageTrainState,
     manifest: Manifest,
     config: Config,
     model_config: ModelConfig,
@@ -85,7 +87,7 @@ def save_checkpoint(
 
 
 def load_checkpoint(
-    path: str, state: TrainState | AcousticTrainState
+    path: str, state: TrainState | StageTrainState
 ) -> tuple:
     """Restore ``state`` in place from ``path``. The file is read onto the
     CPU; ``load_state_dict`` moves each tensor where the live state keeps

@@ -1,32 +1,37 @@
-"""Training orchestration: the alignment and acoustic paths of
-``stylish_tts_tpu/trainer/loop.py``.
+"""Training orchestration: the port's ``stylish_tts_tpu/trainer/loop.py``.
 
 * dataset lists, duration bins and normalization stats computed once and
   persisted (``normalization.json``);
-* static batch planning per duration bin with ``probe_batch_max`` from
-  ``training_plan.alignment``;
-* the epoch loop, which after each epoch also trains on the val split and
-  then refreshes the CTC label priors;
-* metrics at ``log_interval``; validation (CTC loss without priors and
-  the forced-align confidence) every ``val_interval``; a checkpoint every
-  ``save_interval`` and at the end;
+* static batch planning per duration bin with the stage's
+  ``training_plan.<stage>.probe_batch_max``;
+* metrics at ``log_interval``; validation every ``val_interval``; a
+  checkpoint every ``save_interval`` and at the end of each stage;
 * resume from a checkpoint: the same stage fast-forwards the sampler by
   ``manifest.current_step``, another stage (or ``reset_stage``) starts
-  fresh counters;
-* at the end, ``alignment_model.safetensors`` in the JAX package's flat
-  layout, so its ``align`` command can load the port's aligner.
+  fresh counters.
 
-The acoustic stage (``train --stage acoustic``): the same bins, plan
-(``training_plan.acoustic``: ``probe_batch_max`` 16, lr 1e-4, cosine over
-the stage) and normalization; the frozen WavLM when ``loss_weight.slm`` >
-0 (a local checkpoint, or the seeded random init under
-``model.slm.allow_random_fallback``); batches with pitch and alignments;
-metrics moved to the host once per ``log_interval``; validation (mel
-spectral convergence) every ``val_interval`` with the eval samples'
-predicted audio written as wav files; checkpoints every ``save_interval``
-and at the end; same-stage resume. The JAX trainer then advances to
-``textual``; the port stops there with a log line, since the textual stage
-is not ported yet.
+The alignment stage (``train-align``): after each epoch the loop also
+trains on the val split and then refreshes the CTC label priors;
+validation is the CTC loss without priors and the forced-align
+confidence; at the end, ``alignment_model.safetensors`` in the JAX
+package's flat layout, so its ``align`` command can load the port's
+aligner.
+
+The later stages (``train --stage acoustic|textual|duration``): one
+``StageTrainState`` holds every module; each stage trains its own
+(``STAGE_TRAIN_MODELS``) at its plan's lr (cosine over the stage), with
+the frozen WavLM in the acoustic stage when ``loss_weight.slm`` > 0 (a
+local checkpoint, or the seeded random init under
+``model.slm.allow_random_fallback``) and the duration-class weights
+sqrt(train split's inverse class frequencies) in the duration stage;
+batches with pitch and alignments; metrics moved to the host once per
+``log_interval``; validation with the eval samples' predicted audio written
+as wav files. After acoustic the loop advances to textual, then duration
+(``NEXT_STAGE``), as the JAX loop does: a new manifest, fresh AdamW
+moments and step 0, the WavLM and the slm cache dropped.
+
+The per-step host records (``losses``, ``step_metrics``, ``batches``) are
+kept only with ``record_steps``; the JAX loop keeps none.
 
 Runs eagerly on one device (the JAX ``n_devices`` is 1 here).
 A failing validation batch raises: the JAX loop logs and skips it.
@@ -50,27 +55,30 @@ from ..data.dataset import FilePathDataset
 from ..data.loader import PrefetchLoader
 from ..data.sampler import BatchSizeTable, DynamicBatchSampler
 from ..dsp.mel import MelSpectrogram
-from ..models import build_acoustic_models, build_text_aligner
+from ..models import build_models, build_text_aligner
 from ..models.slm import load_wavlm, wavlm_loss
+from ..ops.duration import DurationProcessor
 from ..text import TextCleaner
 from ..utils.device import resolve_device
 from ..utils.params_io import save_text_aligner_safetensors
-from .checkpoint import Manifest, load_checkpoint, read_manifest, save_checkpoint
+from .checkpoint import Manifest, load_checkpoint, save_checkpoint
 from .loss_log import MetricsWriter, broadcast, combine_metrics
 from .normalization import NormalizationStats, compute_stats_streaming
-from .state import create_acoustic_train_state, create_train_state
+from .state import create_stage_train_state, create_train_state
 from .steps import (
     StepContext,
     batch_to_device,
     finish_alignment_epoch,
     make_acoustic_step,
     make_alignment_step,
+    make_duration_step,
+    make_textual_step,
 )
-from .validate import validate_acoustic, validate_alignment
+from .validate import VALIDATORS, validate_alignment
 
 logger = logging.getLogger("stylish_tts_torch")
 
-PORTED_STAGES = ("alignment", "acoustic")
+STAGES = ("alignment", "acoustic", "textual", "duration")
 NEXT_STAGE = {"acoustic": "textual", "textual": "duration"}
 
 
@@ -101,7 +109,8 @@ def setup_stage_logging(out_dir: str) -> None:
 
 class Trainer:
     def __init__(self, config: Config, model_config: ModelConfig,
-                 out_dir: str, *, device: str = "cuda", seed: int = 0):
+                 out_dir: str, *, device: str = "cuda", seed: int = 0,
+                 record_steps: bool = False):
         self.device = resolve_device(device)
         # the JAX step runs the aligner in fp32; cuDNN convs would
         # otherwise default to TF32
@@ -115,12 +124,19 @@ class Trainer:
         self.normalization = NormalizationStats()
         self.manifest = Manifest()
         self.writer = None
-        self.losses: List[float] = []  # align_loss of every step, in order
-        # the acoustic stage's host metrics of every step, in order
-        self.step_metrics: List[Dict[str, float]] = []
-        self.batches: List[List[str]] = []  # the wav paths of every step, in order
-        # one entry per validation pass: step, batch count, mean metrics
-        self.validations: List[Dict[str, float]] = []
+        self.duration_processor = DurationProcessor(
+            model_config.duration_predictor.duration_classes,
+            model_config.duration_predictor.max_duration)
+        # with record_steps, in order over every stage run: the align_loss
+        # of every alignment step, the host metrics of every later-stage
+        # step and the wav paths of every step; None otherwise
+        self.losses: Optional[List[float]] = [] if record_steps else None
+        self.step_metrics: Optional[List[Dict[str, float]]] = [] if record_steps else None
+        self.batches: Optional[List[List[str]]] = [] if record_steps else None
+        # one entry per validation pass: stage, step, batch count, mean metrics
+        self.validations: List[Dict[str, object]] = []
+        # the last manifest of each stage run
+        self.stage_manifests: Dict[str, Manifest] = {}
 
     # ---- data ------------------------------------------------------------
 
@@ -130,7 +146,6 @@ class Trainer:
     def build_dataset(self, list_name: str) -> FilePathDataset:
         with open(self.data_path(list_name), encoding="utf-8") as f:
             lines = f.readlines()
-        # duration-class weights serve only the duration stage
         return FilePathDataset(
             data_list=lines,
             root_path=self.data_path(self.config.dataset.wav_path),
@@ -139,6 +154,8 @@ class Trainer:
             coarse_hop_length=self.mc.hop_length * self.mc.coarse_multiplier,
             pitch_path=self.data_path(self.config.dataset.pitch_path),
             alignment_path=self.data_path(self.config.dataset.alignment_path),
+            dur_to_class=lambda d: self.duration_processor.dur_to_class(
+                torch.as_tensor(d)).numpy(),
             time_bin_quantize=self.config.dataset.time_bin_quantize,
         )
 
@@ -179,26 +196,20 @@ class Trainer:
 
     def train(self, stage: str, checkpoint: Optional[str] = None,
               reset_stage: bool = False):
-        """Train ``stage`` from scratch or from ``checkpoint``; a checkpoint
-        of the same stage resumes where it stopped unless ``reset_stage``.
-        Returns the stage's state (``TrainState`` or ``AcousticTrainState``)."""
-        if stage not in PORTED_STAGES:
-            raise ValueError(
-                f"stage {stage!r} is not ported yet (ported: {PORTED_STAGES})"
-            )
+        """Train ``stage`` from scratch or from ``checkpoint``, then each
+        stage after it (acoustic -> textual -> duration); a checkpoint of
+        the same stage resumes where it stopped unless ``reset_stage``.
+        Returns the last stage's state (``TrainState`` or
+        ``StageTrainState``)."""
+        if stage not in STAGES:
+            raise ValueError(f"unknown stage {stage!r} (stages: {STAGES})")
         train_ds = self.build_dataset(self.config.dataset.train_data)
         val_ds = self.build_dataset(self.config.dataset.val_data)
         train_bins, _ = train_ds.time_bins()
         val_bins, _ = val_ds.time_bins()
 
-        out_dir = osp.join(self.base_out_dir, stage)
-        setup_stage_logging(out_dir)
+        out_dir = self._open_stage(stage)
         self.init_normalization(train_ds, self.base_out_dir)
-        for name, model_dump in (("config.json", self.config),
-                                 ("model_config.json", self.mc)):
-            with open(osp.join(out_dir, name), "w", encoding="utf-8") as f:
-                f.write(model_dump.model_dump_json(indent=2))
-
         torch.manual_seed(self.seed)  # parameter init
         if stage == "alignment":
             state = create_train_state(
@@ -207,8 +218,8 @@ class Trainer:
             )
             models = {"text_aligner": state.aligner}
         else:
-            state = create_acoustic_train_state(build_acoustic_models(self.mc),
-                                                self.device, seed=self.seed)
+            state = create_stage_train_state(build_models(self.mc), self.device, stage,
+                                             seed=self.seed)
             models = state.models
         n_params = {k: f"{sum(p.numel() for p in m.parameters()):,}"
                     for k, m in models.items()}
@@ -217,11 +228,6 @@ class Trainer:
         skip_batches = 0
         self.manifest = Manifest(stage=stage)
         if checkpoint:
-            if stage == "acoustic" and read_manifest(checkpoint).stage != stage:
-                raise ValueError(
-                    f"{checkpoint} is not an acoustic checkpoint; the port's "
-                    "acoustic state holds only the acoustic stage's modules"
-                )
             state, manifest, self.normalization = load_checkpoint(checkpoint, state)
             if manifest.stage == stage and not reset_stage:
                 self.manifest = manifest
@@ -230,27 +236,52 @@ class Trainer:
                             manifest.current_epoch, manifest.current_total_step)
             else:
                 state.step = 0
-        if stage == "acoustic" and self.config.loss_weight.slm > 0:
-            state.wavlm = load_wavlm(self.mc.slm.model,
-                                     self.mc.slm.allow_random_fallback, self.device)
 
-        run = self.run_alignment if stage == "alignment" else self.run_acoustic
-        self.writer = MetricsWriter(out_dir)
-        try:
-            state = run(state, train_ds, val_ds, train_bins, val_bins, out_dir,
-                        skip_batches)
-        finally:
-            self.writer.close()
-        if stage == "alignment":
-            save_text_aligner_safetensors(
-                self.data_path(self.config.dataset.alignment_model_path),
-                state.aligner,
-            )
-            logger.info("saved alignment model")
-        else:
-            logger.info("stage acoustic done; the JAX trainer goes on to %r, which "
-                        "is not ported yet: stopping here", NEXT_STAGE[stage])
-        return state
+        while True:
+            self.writer = MetricsWriter(out_dir)
+            try:
+                if stage == "alignment":
+                    state = self.run_alignment(state, train_ds, val_ds, train_bins,
+                                               val_bins, out_dir, skip_batches)
+                else:
+                    if stage == "acoustic" and self.config.loss_weight.slm > 0:
+                        state.wavlm = load_wavlm(self.mc.slm.model,
+                                                 self.mc.slm.allow_random_fallback,
+                                                 self.device)
+                    state = self.run_stage(stage, state, train_ds, val_ds, train_bins,
+                                           val_bins, out_dir, skip_batches)
+                    state.wavlm = None
+            finally:
+                self.writer.close()
+            self.stage_manifests[stage] = self.manifest
+            if stage == "alignment":
+                save_text_aligner_safetensors(
+                    self.data_path(self.config.dataset.alignment_model_path),
+                    state.aligner,
+                )
+                logger.info("saved alignment model")
+                return state
+            stage = NEXT_STAGE.get(stage)
+            if stage is None:
+                return state
+            out_dir = self._open_stage(stage)
+            logger.info("advancing to stage %s", stage)
+            self.manifest = Manifest(stage=stage)
+            skip_batches = 0
+            # the later stages never read the slm cache
+            train_ds.slm = {}
+            val_ds.slm = {}
+            state.begin_stage(stage)
+
+    def _open_stage(self, stage: str) -> str:
+        """The stage's directory, with its log file and config copies."""
+        out_dir = osp.join(self.base_out_dir, stage)
+        setup_stage_logging(out_dir)
+        for name, model_dump in (("config.json", self.config),
+                                 ("model_config.json", self.mc)):
+            with open(osp.join(out_dir, name), "w", encoding="utf-8") as f:
+                f.write(model_dump.model_dump_json(indent=2))
+        return out_dir
 
     def run_alignment(self, state, train_ds, val_ds, train_bins, val_bins,
                       out_dir, skip_batches=0):
@@ -283,7 +314,8 @@ class Trainer:
                     skip_batches -= 1
                     continue
                 window.append(step_fn(state, batch))
-                self.batches.append(paths)
+                if self.batches is not None:
+                    self.batches.append(paths)
                 self.manifest.current_step = i + 1
                 self.manifest.current_total_step += 1
                 total_step = self.manifest.current_total_step
@@ -305,7 +337,8 @@ class Trainer:
                     items, hop_length=self.mc.hop_length, require_pitch=False,
                 )
                 window.append(step_fn(state, batch_to_device(batch, self.device)))
-                self.batches.append(paths)
+                if self.batches is not None:
+                    self.batches.append(paths)
             state = finish_alignment_epoch(ctx, state)
             self.manifest.current_step = 1
         if window:
@@ -333,13 +366,21 @@ class Trainer:
         table.save()
         return table
 
-    # ---- acoustic stage --------------------------------------------------
+    # ---- acoustic, textual and duration stages -----------------------------
 
-    def run_acoustic(self, state, train_ds, val_ds, train_bins, val_bins, out_dir,
-                     skip_batches=0):
+    def _make_step(self, stage: str, ctx: StepContext, train_ds: FilePathDataset):
+        if stage == "acoustic":
+            return make_acoustic_step(ctx)
+        if stage == "textual":
+            return make_textual_step(ctx)
+        weights = torch.sqrt(torch.as_tensor(np.nan_to_num(train_ds.duration_weights)))
+        return make_duration_step(ctx, weights.to(self.device))
+
+    def run_stage(self, stage, state, train_ds, val_ds, train_bins, val_bins, out_dir,
+                  skip_batches=0):
         cfg = self.config
-        plan = cfg.training_plan.get_stage("acoustic")
-        table = self._plan_table("acoustic", train_bins, out_dir)
+        plan = cfg.training_plan.get_stage(stage)
+        table = self._plan_table(stage, train_bins, out_dir)
         sampler = DynamicBatchSampler(train_bins, table, seed=17)
         steps_per_epoch = len(sampler)
         self.manifest.steps_per_epoch = steps_per_epoch
@@ -352,7 +393,7 @@ class Trainer:
                              and self.device.type == "cuda"),
             sampled_mrd_only=cfg.training.sampled_mrd_only,
         )
-        step_fn = make_acoustic_step(ctx)
+        step_fn = self._make_step(stage, ctx, train_ds)
 
         window: List[Dict[str, object]] = []
         t_start = time.time()
@@ -369,7 +410,8 @@ class Trainer:
                     skip_batches -= 1
                     continue
                 window.append(step_fn(state, batch))
-                self.batches.append(paths)
+                if self.batches is not None:
+                    self.batches.append(paths)
                 self.manifest.current_step = i + 1
                 self.manifest.current_total_step += 1
                 total_step = self.manifest.current_total_step
@@ -378,7 +420,7 @@ class Trainer:
                                       f"Epoch [{epoch}/{plan.epochs}], "
                                       f"Step [{i + 1}/{steps_per_epoch}] ")
                 if total_step % cfg.training.val_interval == 0:
-                    self.acoustic_validation(state, ctx, val_ds, val_bins, table)
+                    self.stage_validation(stage, state, ctx, val_ds, val_bins, table)
                 if total_step % cfg.training.save_interval == 0:
                     save_checkpoint(out_dir, state, self.manifest, cfg, self.mc,
                                     self.normalization)
@@ -386,31 +428,36 @@ class Trainer:
         if window:
             self._log_metrics(window, ctx, self.manifest.current_total_step,
                               f"Epoch [{plan.epochs}/{plan.epochs}] ")
-        logger.info("stage acoustic done: %d steps, %.1f s", state.step,
+        logger.info("stage %s done: %d steps, %.1f s", stage, state.step,
                     time.time() - t_start)
         save_checkpoint(out_dir, state, self.manifest, cfg, self.mc, self.normalization)
         return state
 
     def _log_metrics(self, window, ctx, total_step, header):
-        """Move the window's device scalars to the host in one copy, log the
-        means, and keep every step's metrics."""
+        """Move the window's device scalars to the host in one copy and log
+        the means (every step's metrics kept with ``record_steps``)."""
         tensor_keys = sorted(k for k, v in window[0].items() if torch.is_tensor(v))
         packed = torch.stack([torch.stack([m[k].float() for k in tensor_keys])
                               for m in window]).cpu().numpy()
+        rows = []
         for m, row in zip(window, packed):
             host = {k: float(v) for k, v in m.items() if not torch.is_tensor(v)}
             host.update(zip(tensor_keys, map(float, row)))
-            self.step_metrics.append(host)
+            rows.append(host)
         window.clear()
-        avg = combine_metrics(self.step_metrics[-len(packed):])
+        if self.step_metrics is not None:
+            self.step_metrics.extend(rows)
+        avg = combine_metrics(rows)
         lr = avg.pop("lr", 0.0)
         broadcast(avg, ctx.weights, self.writer, total_step, header=header)
         self.writer.add_scalar("train/lr", lr, total_step)
 
-    def acoustic_validation(self, state, ctx, val_ds, val_bins, table):
-        """Mel spectral convergence over the val split at the planned batch
-        sizes (a ragged bin re-chunked to B = 1), and the eval samples'
-        predicted audio written as wav files. Updates ``manifest.best_loss``."""
+    def stage_validation(self, stage, state, ctx, val_ds, val_bins, table):
+        """The stage's validator (``validate.VALIDATORS``) over the val split
+        at the planned batch sizes (a ragged bin re-chunked to B = 1); the
+        logged metrics are the means of the batch means, and the eval
+        samples' predicted audio is written as wav files. Updates
+        ``manifest.best_loss``."""
         step = self.manifest.current_total_step
         sample_paths = set(select_validation_samples(
             [s.wav_path for s in val_ds.segments],
@@ -426,28 +473,39 @@ class Trainer:
                 items = [val_ds.load_segment(j) for j in chunk]
                 batch, paths = collate_batch(items, hop_length=self.mc.hop_length,
                                              require_pitch=True)
-                m, audio = validate_acoustic(state, ctx, batch_to_device(batch, self.device))
-                metrics_acc.append(m["mel"])
+                m, audio = VALIDATORS[stage](state, ctx, batch_to_device(batch, self.device))
+                metrics_acc.append(m)
                 for bi, p in enumerate(paths):
                     if p in sample_paths:
                         self.writer.add_audio(f"eval/{p}", audio[bi].float().cpu().numpy(),
                                               step, self.mc.sample_rate)
         if not metrics_acc:
             return {}
-        avg = {"mel": float(torch.stack(metrics_acc).mean().cpu())}
+        avg = self._mean_of_batch_means(metrics_acc)
         total = broadcast(avg, ctx.weights, self.writer, step, prefix="eval",
                           header=f"Validation step {step}: ")
         if total < self.manifest.best_loss:
             self.manifest.best_loss = total
-        self.validations.append({"step": step, "batches": len(metrics_acc), **avg})
+        self.validations.append({"stage": stage, "step": step,
+                                 "batches": len(metrics_acc), **avg})
         return avg
+
+    @staticmethod
+    def _mean_of_batch_means(metrics_acc) -> Dict[str, float]:
+        """Per key, the mean of the batches' device scalars (one host copy)."""
+        keys = sorted(metrics_acc[0])
+        packed = torch.stack([torch.stack([m[k].float() for k in keys])
+                              for m in metrics_acc])
+        return combine_metrics(
+            [dict(zip(keys, map(float, row))) for row in packed.cpu().numpy()])
 
     def _log_window(self, window, ctx, total_step, epoch, epochs, i,
                     steps_per_epoch):
         """Move the window's device scalars to the host in one copy, log the
         average, and keep every align_loss."""
         losses = torch.stack([m["align_loss"] for m in window]).cpu().numpy()
-        self.losses.extend(float(x) for x in losses)
+        if self.losses is not None:
+            self.losses.extend(float(x) for x in losses)
         lr = window[-1]["lr"]
         window.clear()
         broadcast(
@@ -481,15 +539,12 @@ class Trainer:
                     state, ctx, batch_to_device(batch, self.device)))
         if not metrics_acc:
             return {}
-        keys = sorted(metrics_acc[0])
-        packed = torch.stack([torch.stack([m[k] for k in keys]) for m in metrics_acc])
-        avg = combine_metrics(
-            [dict(zip(keys, map(float, row))) for row in packed.cpu().numpy()]
-        )
+        avg = self._mean_of_batch_means(metrics_acc)
         step = self.manifest.current_total_step
         total = broadcast(avg, ctx.weights, self.writer, step, prefix="eval",
                           header=f"Validation step {step}: ")
         if total < self.manifest.best_loss:
             self.manifest.best_loss = total
-        self.validations.append({"step": step, "batches": len(metrics_acc), **avg})
+        self.validations.append({"stage": "alignment", "step": step,
+                                 "batches": len(metrics_acc), **avg})
         return avg

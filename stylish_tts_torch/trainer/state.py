@@ -1,21 +1,26 @@
 """Training state: the port's ``stylish_tts_tpu/trainer/state.py``.
 
 The JAX state is an immutable pytree threaded through a pure step; here
-it is one mutable object per stage that the step updates in place:
+it is one mutable object that the step updates in place:
 
 * ``TrainState`` (alignment): the aligner module holds its parameters,
   its AdamW the moments and step count, the label-prior accumulators are
   device tensors, and a ``torch.Generator`` on the device replaces the JAX
   ``rng`` key;
-* ``AcousticTrainState``: the six modules of the acoustic stage, one AdamW
-  each, the discriminators' loss EMAs (host float32), three generators in
-  place of the JAX key's per-step splits (dropout and model on the device;
-  the disc index on the host, since it picks which MRD runs), the step, and
-  the frozen WavLM, held by reference and never checkpointed (the JAX
-  ``frozen``).
+* ``StageTrainState`` (acoustic, textual, duration): the twelve modules
+  of ``build_models`` by their registry names, one AdamW for each module
+  the current stage trains and each of its discriminators
+  (``STAGE_TRAIN_MODELS`` / ``STAGE_DISCRIMINATORS``), the discriminators'
+  loss EMAs (host float32), three generators in place of the JAX key's
+  per-step splits (dropout and model on the device; the disc index on the
+  host, since it picks which MRD runs), the step, and the frozen WavLM of
+  the acoustic stage, held by reference and never checkpointed (the JAX
+  ``frozen``). ``begin_stage`` is the JAX advance: fresh AdamW moments and
+  step 0; the weights, EMAs and generators carry on.
 
 ``state_dict`` / ``load_state_dict`` carry everything but the WavLM through
-a checkpoint (``trainer/checkpoint.py``).
+a checkpoint (``trainer/checkpoint.py``). A later stage's checkpoint
+carries every module, as the JAX tree does.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..models.models import STAGE_DISCRIMINATORS, STAGE_TRAIN_MODELS
 from .optim import init_disc_ema, make_optimizer
 
 
@@ -81,7 +87,7 @@ def create_train_state(aligner: torch.nn.Module, n_classes: int,
 
 
 @dataclass
-class AcousticTrainState:
+class StageTrainState:
     models: Dict[str, nn.Module]
     optimizers: Dict[str, torch.optim.Optimizer]
     disc_ema: Dict[str, torch.Tensor]
@@ -92,6 +98,13 @@ class AcousticTrainState:
     wavlm: Optional[nn.Module] = None
 
     GENERATORS = ("dropout_generator", "model_generator", "disc_index_generator")
+
+    def begin_stage(self, stage: str) -> None:
+        """Fresh AdamW for the modules ``stage`` trains and its
+        discriminators, and step 0."""
+        names = STAGE_TRAIN_MODELS[stage] + STAGE_DISCRIMINATORS[stage]
+        self.optimizers = {k: make_optimizer(self.models[k].parameters()) for k in names}
+        self.step = 0
 
     def state_dict(self) -> dict:
         """Everything a resume needs but the WavLM, as tensors, numbers and
@@ -105,30 +118,41 @@ class AcousticTrainState:
         }
 
     def load_state_dict(self, state: dict) -> None:
-        """Restore in place from ``state_dict()``'s output (on any device)."""
-        for k, m in self.models.items():
-            m.load_state_dict(state["models"][k])
+        """Restore in place from ``state_dict()``'s output (on any device).
+        A module the saved state lacks (an acoustic checkpoint holds only
+        the acoustic stage's six) keeps its weights; an optimizer is loaded
+        where the saved state has one for the same module, so a checkpoint
+        of another stage leaves the current stage's moments fresh."""
+        if "models" not in state:
+            raise ValueError("the checkpoint holds no module of the acoustic, textual "
+                             "or duration stage (an alignment checkpoint?)")
+        for k, sd in state["models"].items():
+            self.models[k].load_state_dict(sd)
         for k, o in self.optimizers.items():
-            o.load_state_dict(state["optimizers"][k])
-        self.disc_ema = {k: v.to("cpu", torch.float32) for k, v in state["disc_ema"].items()}
+            if k in state["optimizers"]:
+                o.load_state_dict(state["optimizers"][k])
+        self.disc_ema.update({k: v.to("cpu", torch.float32)
+                              for k, v in state["disc_ema"].items()})
         for g in self.GENERATORS:
             getattr(self, g).set_state(state["generators"][g])
         self.step = int(state["step"])
 
 
-def create_acoustic_train_state(models: Dict[str, nn.Module], device,
-                                seed: int = 0) -> AcousticTrainState:
+def create_stage_train_state(models: Dict[str, nn.Module], device, stage: str = "acoustic",
+                             seed: int = 0) -> StageTrainState:
     models = {k: m.to(device) for k, m in models.items()}
     gens = []
     for i, dev in enumerate((device, device, "cpu")):
         g = torch.Generator(device=dev)
         g.manual_seed(seed * 3 + i)
         gens.append(g)
-    return AcousticTrainState(
+    state = StageTrainState(
         models=models,
-        optimizers={k: make_optimizer(m.parameters()) for k, m in models.items()},
+        optimizers={},
         disc_ema=init_disc_ema(),
         dropout_generator=gens[0],
         model_generator=gens[1],
         disc_index_generator=gens[2],
     )
+    state.begin_stage(stage)
+    return state

@@ -1,4 +1,4 @@
-"""Train steps: the alignment and acoustic stages of
+"""Train steps: the alignment, acoustic, textual and duration stages of
 ``stylish_tts_tpu/trainer/steps.py``.
 
 alignment: log-mel of the batch audio -> TextAligner (with dropout) ->
@@ -19,11 +19,32 @@ step at all (weights, moments and step count untouched). With
 ``sampled_mrd_only`` (the default) only the sampled MRD runs and only its
 EMA moves; without it all three run and their EMAs move.
 
-Precision: with ``mixed_precision`` the generator phase runs under bf16
+textual: the pitch style encoder and the pitch/energy predictor (dropout
+on) predict F0 and energy, which drive the frozen speech predictor (eval
+mode: no dropout, no decoder smoothing; its sine source still draws from
+the model generator, as the JAX ``training=False, rng=r_model`` call does)
+and the frozen ``pitch_disc``; the loss is mel spectral convergence +
+adversarial + the curves' smooth-L1; gradients reach the predicted curves
+through the frozen modules' activations, never their weights. Then the
+``pitch_disc`` step on the detached curves (F0 masked by the ground
+truth's voicing at 10 Hz).
+
+duration: the duration style encoder and predictor (dropout on) give
+class logits; the loss is the smooth-L1 of the expected durations, the
+class-weighted cross entropy and the adversarial loss of the frozen
+``dur_disc``; then the ``dur_disc`` step.
+
+Every stage but alignment updates each trained module and discriminator
+through the nonfinite guard, and only the stage's trained modules hold
+``requires_grad`` during its generator phase.
+
+Precision: with ``mixed_precision`` each generator phase runs under bf16
 autocast on the card (master weights and AdamW float32); the DSP, the
-generator head's atan2/exp, the WavLM logits and resampler and the disc
-losses stay float32, and the discriminators run in bf16 only when
-``generator.remat`` is set too (the JAX ``disc_dtype`` rule).
+generator head's atan2/exp, the WavLM logits and resampler, the predicted
+curves and durations, and the losses stay float32; the acoustic
+discriminators run in bf16 only when ``generator.remat`` is set too (the
+JAX ``disc_dtype`` rule), the pitch and duration discriminators always in
+float32 (as the JAX steps run them).
 
 The JAX key's per-step splits become the state's generators; the
 ``parity_deterministic`` / ``parity_prior`` / ``forced_disc_index``
@@ -41,7 +62,7 @@ import torch
 from .. import losses as L
 from ..dsp.mel import MelSpectrogram
 from ..dsp.multi_spectrogram import MultiSpectrogram
-from ..models.models import ACOUSTIC_DISCRIMINATORS, ACOUSTIC_TRAIN_MODELS
+from ..models.models import STAGE_DISCRIMINATORS, STAGE_TRAIN_MODELS
 from ..ops import ctc as ctc_ops
 from ..ops.ctc_cuda import ctc_loss_with_priors_cuda
 from ..ops.duration import DurationProcessor
@@ -52,7 +73,7 @@ from .optim import (
     modules_finite,
     update_disc_ema,
 )
-from .state import AcousticTrainState, TrainState
+from .state import StageTrainState, TrainState
 
 PRIOR_SCALE = 0.3
 
@@ -121,7 +142,8 @@ class StepContext:
             hop_length=se.hop_length, sample_rate=mc.sample_rate,
         )
         self.multi_spec = MultiSpectrogram(sample_rate=mc.sample_rate)
-        self.duration_processor = DurationProcessor()
+        self.duration_processor = DurationProcessor(
+            mc.duration_predictor.duration_classes, mc.duration_predictor.max_duration)
         self.blank_id = mc.text_encoder.tokens
 
     def norm_mel(self, audio, transform):
@@ -224,17 +246,61 @@ def _adv_generator_metrics(ctx, models, feats_t, feats_p, audio_t, audio_p):
     return total
 
 
-def _disc_phase_mrd(ctx, state: AcousticTrainState, feats_t_fft, pred_fft_detached,
+def _generator_phase_grads(state: StageTrainState, stage: str) -> None:
+    """Only the modules ``stage`` trains form weight gradients; their old
+    ones are cleared."""
+    trained = STAGE_TRAIN_MODELS[stage]
+    for name, module in state.models.items():
+        module.requires_grad_(name in trained)
+    for name in trained:
+        state.optimizers[name].zero_grad(set_to_none=True)
+
+
+def _update_trained(state: StageTrainState, stage: str, lr: float) -> None:
+    """AdamW on the modules ``stage`` trains, each through the nonfinite
+    guard (one host sync)."""
+    names = STAGE_TRAIN_MODELS[stage]
+    flags = modules_finite([state.models[n] for n in names])
+    for name, flag in zip(names, flags):
+        apply_module_update(state.models[name], state.optimizers[name], lr, finite=flag)
+
+
+def _begin_disc_phase(state: StageTrainState, stage: str) -> None:
+    for name in STAGE_DISCRIMINATORS[stage]:
+        state.models[name].requires_grad_(True)
+        state.optimizers[name].zero_grad(set_to_none=True)
+
+
+def _update_discriminators(state: StageTrainState, stage: str, total, raws, stepped,
+                           lr: float, sqrt_b: float) -> dict:
+    """Backward of the discriminator loss ``total`` x sqrt(B); AdamW on the
+    ``stepped`` discriminators at lr x their gap-aware multiplier, read from
+    the EMAs before the step (host syncs: their finite flags, then the raw
+    LSGAN terms ``raws`` that move the EMAs). Returns the multipliers of
+    every discriminator of ``stage`` as ``<name>_lr_mult``."""
+    (total * sqrt_b).backward()
+    lr_mults = {f"{name}_lr_mult": float(L.disc_lr_multiplier(state.disc_ema[name],
+                                                              DISC_SUB_COUNT[name]))
+                for name in STAGE_DISCRIMINATORS[stage]}
+    raw_names = sorted(raws)
+    flags = modules_finite([state.models[n] for n in stepped])
+    host = torch.stack([raws[n].detach() for n in raw_names]).cpu()
+    for name, flag in zip(stepped, flags):
+        apply_module_update(state.models[name], state.optimizers[name],
+                            lr * lr_mults[f"{name}_lr_mult"], finite=flag)
+    for name, raw in zip(raw_names, host):
+        state.disc_ema[name] = update_disc_ema(state.disc_ema[name], raw)
+    return lr_mults
+
+
+def _disc_phase_mrd(ctx, state: StageTrainState, feats_t_fft, pred_fft_detached,
                     audio_t, audio_p_detached, disc_index: int, lr: float,
                     sqrt_b: float):
     """Discriminator step on the detached generator outputs; returns
-    (d_loss, lr_mults). Updates the sampled MRD and the waveform disc (one
-    host sync: their finite flags and the raw LSGAN terms for the EMAs)."""
+    (d_loss, lr_mults). Updates the sampled MRD and the waveform disc."""
     models = state.models
     active = [disc_index] if ctx.sampled_mrd_only else [0, 1, 2]
-    for name in ACOUSTIC_DISCRIMINATORS:
-        models[name].requires_grad_(True)
-        state.optimizers[name].zero_grad(set_to_none=True)
+    _begin_disc_phase(state, "acoustic")
     total = 0.0
     raws = {}
     with ctx.disc_autocast(audio_t.device):
@@ -246,22 +312,21 @@ def _disc_phase_mrd(ctx, state: AcousticTrainState, feats_t_fft, pred_fft_detach
         disc = models["disc"]
         pair, raws["disc"] = L.discriminator_pair_loss(disc(audio_t), disc(audio_p_detached))
         total = total + L.DISC_AUDIO_WEIGHT * pair
-    (total * sqrt_b).backward()
-
-    # gap-aware LR multipliers from the PRE-update EMAs
-    lr_mults = {f"{name}_lr_mult": float(L.disc_lr_multiplier(state.disc_ema[name],
-                                                              DISC_SUB_COUNT[name]))
-                for name in ACOUSTIC_DISCRIMINATORS}
-    stepped = [f"mrd{disc_index}", "disc"]
-    raw_names = sorted(raws)
-    flags = modules_finite([models[n] for n in stepped])
-    host = torch.stack([raws[n].detach() for n in raw_names]).cpu()
-    for name, flag in zip(stepped, flags):
-        apply_module_update(models[name], state.optimizers[name],
-                            lr * lr_mults[f"{name}_lr_mult"], finite=flag)
-    for name, raw in zip(raw_names, host):
-        state.disc_ema[name] = update_disc_ema(state.disc_ema[name], raw)
+    lr_mults = _update_discriminators(state, "acoustic", total, raws,
+                                      [f"mrd{disc_index}", "disc"], lr, sqrt_b)
     return total.detach(), lr_mults
+
+
+def _prosody_disc_phase(state: StageTrainState, stage: str, real, fake_detached,
+                        lr: float, sqrt_b: float):
+    """The textual / duration discriminator step (float32); returns
+    (d_loss, lr_mults)."""
+    name, = STAGE_DISCRIMINATORS[stage]
+    disc = state.models[name]
+    _begin_disc_phase(state, stage)
+    pair, raw = L.discriminator_pair_loss(disc(real), disc(fake_detached))
+    lr_mults = _update_discriminators(state, stage, pair, {name: raw}, [name], lr, sqrt_b)
+    return pair.detach(), lr_mults
 
 
 def make_acoustic_step(ctx: StepContext):
@@ -270,7 +335,7 @@ def make_acoustic_step(ctx: StepContext):
     ``generator``, ``slm`` (when on) and ``discriminator``; floats ``lr`` and
     ``<disc>_lr_mult``."""
 
-    def step(state: AcousticTrainState, batch: Batch):
+    def step(state: StageTrainState, batch: Batch):
         models = state.models
         sp, se = models["speech_predictor"], models["speech_style_encoder"]
         device = batch.audio_gt.device
@@ -289,10 +354,7 @@ def make_acoustic_step(ctx: StepContext):
         training = not ctx.parity_deterministic
         sp.train(training)
         se.train(training)
-        for name in ACOUSTIC_DISCRIMINATORS:
-            models[name].requires_grad_(False)
-        for name in ACOUSTIC_TRAIN_MODELS:
-            state.optimizers[name].zero_grad(set_to_none=True)
+        _generator_phase_grads(state, "acoustic")
         with torch.autocast(device.type, dtype=torch.bfloat16,
                             enabled=ctx.mixed_precision):
             style = se(style_mel)
@@ -319,15 +381,134 @@ def make_acoustic_step(ctx: StepContext):
                 else:
                     metrics["slm"] = ctx.slm_loss_fn(state.wavlm, audio_t, pred_audio)
         L.backwards_loss(metrics, ctx.weights).backward()
-        flags = modules_finite([models[n] for n in ACOUSTIC_TRAIN_MODELS])
-        for name, flag in zip(ACOUSTIC_TRAIN_MODELS, flags):
-            apply_module_update(models[name], state.optimizers[name], lr, finite=flag)
+        _update_trained(state, "acoustic", lr)
 
         # --- discriminator phase on the detached outputs ---
         d_loss, lr_mults = _disc_phase_mrd(
             ctx, state, feats_t.fft_mag, [f.detach() for f in feats_p.fft_mag],
             audio_t, pred_audio.detach(), disc_index, lr, sqrt_b,
         )
+        state.step += 1
+        out = {k: v.detach() for k, v in metrics.items()}
+        out["discriminator"] = d_loss
+        out["lr"] = lr
+        out.update(lr_mults)
+        return out
+
+    return step
+
+
+# ==========================================================================
+# Textual and duration stages
+# ==========================================================================
+
+
+def make_textual_step(ctx: StepContext):
+    """(state, batch on the state's device) -> metrics; updates ``state``
+    in place. Metrics: device scalars ``mel``, ``generator``, ``pitch``,
+    ``energy`` and ``discriminator``; floats ``lr`` and
+    ``pitch_disc_lr_mult``."""
+
+    def step(state: StageTrainState, batch: Batch):
+        models = state.models
+        pe, pse = models["pitch_energy_predictor"], models["pe_style_encoder"]
+        sp, se = models["speech_predictor"], models["speech_style_encoder"]
+        pitch_disc = models["pitch_disc"]
+        device = batch.audio_gt.device
+        mel, style_mel, energy, pitch, alignment, frames = _acoustic_features(ctx, batch)
+        with torch.no_grad():
+            audio_t = batch.audio_gt[:, : frames * ctx.mc.hop_length].to(torch.float32)
+            feats_t = ctx.multi_spec(audio_t)
+            voiced = (pitch > 10.0).to(torch.float32)
+            pitchcat = torch.stack([pitch * voiced, energy], dim=1)
+        sqrt_b = math.sqrt(batch.text.shape[0])
+        lr = cosine_lr(ctx.base_lr, state.step, ctx.stage_steps)
+
+        # --- generator phase; the acoustic modules and pitch_disc frozen ---
+        training = not ctx.parity_deterministic
+        pe.train(training)
+        pse.train(training)
+        sp.eval()
+        se.eval()
+        _generator_phase_grads(state, "textual")
+        with torch.autocast(device.type, dtype=torch.bfloat16,
+                            enabled=ctx.mixed_precision):
+            pe_style = pse(style_mel, pitch, energy)
+            pred_pitch, pred_energy = pe(batch.text, batch.text_lengths, alignment,
+                                         pe_style, generator=state.dropout_generator)
+            pred_pitch, pred_energy = pred_pitch.float(), pred_energy.float()
+            pred = sp(
+                batch.text, batch.text_lengths, alignment, pred_pitch, pred_energy,
+                (pred_pitch > 20.0).to(torch.float32), se(style_mel), pred_pitch,
+                generator=None if ctx.parity_deterministic else state.model_generator,
+                prior=ctx.parity_prior, deterministic_prior=ctx.parity_deterministic,
+            )
+            feats_p = ctx.multi_spec(pred.audio.float())
+        pred_pitchcat = torch.stack([pred_pitch * voiced, pred_energy], dim=1)
+        metrics = {
+            "mel": L.spectral_convergence_loss(feats_t.mel, feats_p.mel),
+            "generator": L.generator_pair_loss(pitch_disc(pitchcat),
+                                               pitch_disc(pred_pitchcat)),
+            **L.pitch_energy_losses(pred_pitch, pitch, pred_energy, energy),
+        }
+        L.backwards_loss(metrics, ctx.weights).backward()
+        _update_trained(state, "textual", lr)
+
+        d_loss, lr_mults = _prosody_disc_phase(state, "textual", pitchcat,
+                                               pred_pitchcat.detach(), lr, sqrt_b)
+        state.step += 1
+        out = {k: v.detach() for k, v in metrics.items()}
+        out["discriminator"] = d_loss
+        out["lr"] = lr
+        out.update(lr_mults)
+        return out
+
+    return step
+
+
+def make_duration_step(ctx: StepContext, duration_class_weights: torch.Tensor):
+    """(state, batch on the state's device) -> metrics; updates ``state``
+    in place. ``duration_class_weights`` (classes,) weigh the cross entropy
+    (the trainer passes sqrt of the train split's inverse class
+    frequencies). Metrics: device scalars ``duration``, ``duration_ce``,
+    ``generator`` and ``discriminator``; floats ``lr`` and
+    ``dur_disc_lr_mult``."""
+
+    def step(state: StageTrainState, batch: Batch):
+        models = state.models
+        dp, dse = models["duration_predictor"], models["duration_style_encoder"]
+        dur_disc = models["dur_disc"]
+        device = batch.audio_gt.device
+        with torch.no_grad():
+            style_mel = ctx.norm_mel(batch.audio_gt, ctx.to_style_mel)
+            target_dur = batch.durations.to(torch.float32)
+            targets = ctx.duration_processor.dur_to_class(batch.durations)
+        sqrt_b = math.sqrt(batch.text.shape[0])
+        lr = cosine_lr(ctx.base_lr, state.step, ctx.stage_steps)
+
+        training = not ctx.parity_deterministic
+        dp.train(training)
+        dse.train(training)
+        _generator_phase_grads(state, "duration")
+        with torch.autocast(device.type, dtype=torch.bfloat16,
+                            enabled=ctx.mixed_precision):
+            duration_raw = dp(batch.text, batch.text_lengths, dse(style_mel),
+                              generator=state.dropout_generator).float()
+        duration = ctx.duration_processor.prediction_to_duration(duration_raw,
+                                                                 batch.text_lengths)
+        metrics = {
+            "duration": L.masked_smooth_l1_per_sequence(duration, target_dur,
+                                                        batch.text_lengths),
+            "duration_ce": L.duration_ce_loss(duration_raw, targets, batch.text_lengths,
+                                              duration_class_weights),
+            "generator": L.generator_pair_loss(dur_disc(target_dur[:, None]),
+                                               dur_disc(duration[:, None])),
+        }
+        L.backwards_loss(metrics, ctx.weights).backward()
+        _update_trained(state, "duration", lr)
+
+        d_loss, lr_mults = _prosody_disc_phase(state, "duration", target_dur[:, None],
+                                               duration.detach()[:, None], lr, sqrt_b)
         state.step += 1
         out = {k: v.detach() for k, v in metrics.items()}
         out["discriminator"] = d_loss

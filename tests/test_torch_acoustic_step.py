@@ -43,9 +43,9 @@ from stylish_tts_tpu.trainer.steps import Batch as JaxBatch
 from stylish_tts_tpu.trainer.steps import StepContext as JaxContext
 from stylish_tts_tpu.trainer.steps import make_acoustic_step as jax_acoustic_step
 from stylish_tts_torch.convert.from_jax import module_from_jax
-from stylish_tts_torch.models import ACOUSTIC_DISCRIMINATORS, build_acoustic_models
+from stylish_tts_torch.models import STAGE_DISCRIMINATORS, build_models
 from stylish_tts_torch.trainer.normalization import NormalizationStats
-from stylish_tts_torch.trainer.state import create_acoustic_train_state
+from stylish_tts_torch.trainer.state import create_stage_train_state
 from stylish_tts_torch.trainer.steps import Batch, StepContext, make_acoustic_step
 from test_torch_synth_common import jax_params, port_config
 from test_train_steps import small_model_config
@@ -104,10 +104,10 @@ def start():
 
 def _port_state(params):
     torch.manual_seed(0)
-    pm = build_acoustic_models(port_config(MC))
+    pm = build_models(port_config(MC))
     for n in NAMES:
         pm[n].load_state_dict(module_from_jax(pm[n], params[n]))
-    return create_acoustic_train_state(pm, "cpu")
+    return create_stage_train_state(pm, "cpu", "acoustic")
 
 
 def _run_jax(models, params, prior, sampled):
@@ -196,7 +196,7 @@ def test_nonfinite_gradient_skips_the_module_update(start):
 
     _models, params, _prior = start
     state = _port_state(params)
-    mods = [state.models[n] for n in ACOUSTIC_DISCRIMINATORS]
+    mods = [state.models[n] for n in STAGE_DISCRIMINATORS["acoustic"]]
     for m in mods:
         for p in m.parameters():
             p.grad = torch.ones_like(p)
@@ -204,7 +204,7 @@ def test_nonfinite_gradient_skips_the_module_update(start):
     flags = modules_finite(mods)
     assert flags == [False, True, True, True]
     w0 = copy.deepcopy(mods[0].state_dict())
-    for name, m, flag in zip(ACOUSTIC_DISCRIMINATORS, mods, flags):
+    for name, m, flag in zip(STAGE_DISCRIMINATORS["acoustic"], mods, flags):
         assert apply_module_update(m, state.optimizers[name], 1e-3, finite=flag) == flag
     assert all(torch.equal(v, w0[k]) for k, v in mods[0].state_dict().items())
     assert not state.optimizers["mrd0"].state and state.optimizers["mrd1"].state

@@ -14,8 +14,10 @@ the JAX package, the ``AcousticTrainState`` checkpoint, and
   [0.01, 4], validation passes with eval wavs, checkpoints in the JAX
   naming pruned to 4; a run resumed from its oldest kept checkpoint equals
   the uninterrupted one bitwise (metrics, batch order, final state);
-  ``--reset-stage`` restarts the counters, and a checkpoint of another
-  stage raises.
+  ``--reset-stage`` restarts the counters, and an alignment checkpoint
+  (which holds no module of the later stages) raises. The run goes on into
+  the textual and duration stages as ``train`` does; here they are given
+  0 epochs (tests/test_torch_recipe_trainer.py trains them).
 """
 
 import os
@@ -38,7 +40,7 @@ from stylish_tts_tpu.trainer.steps import _acoustic_features as jax_features
 from stylish_tts_torch.cli import train_cli
 from stylish_tts_torch.config import Config
 from stylish_tts_torch.convert.from_jax import module_from_jax
-from stylish_tts_torch.models import build_acoustic_models
+from stylish_tts_torch.models import build_models
 from stylish_tts_torch.trainer.checkpoint import (
     STATE_FILE,
     Manifest,
@@ -47,7 +49,7 @@ from stylish_tts_torch.trainer.checkpoint import (
     save_checkpoint,
 )
 from stylish_tts_torch.trainer.normalization import NormalizationStats
-from stylish_tts_torch.trainer.state import create_acoustic_train_state
+from stylish_tts_torch.trainer.state import create_stage_train_state, create_train_state
 from stylish_tts_torch.trainer.steps import Batch, StepContext, make_acoustic_step
 from stylish_tts_torch.trainer.validate import validate_acoustic
 from test_torch_checkpoint import _assert_tree_equal
@@ -99,10 +101,10 @@ def test_validate_acoustic_matches_jax():
         return loss, pred.audio
 
     ref_loss, ref_audio = jax.jit(jax_validate)(params, JaxBatch(*map(jnp.asarray, batch)))
-    pm = build_acoustic_models(port_config(mc))
+    pm = build_models(port_config(mc))
     for n in params:
         pm[n].load_state_dict(module_from_jax(pm[n], params[n]))
-    state = create_acoustic_train_state(pm, "cpu")
+    state = create_stage_train_state(pm, "cpu", "acoustic")
     pctx = StepContext(port_config(mc), {}, NormalizationStats(**norm))
     m, audio = validate_acoustic(state, pctx, Batch(*map(torch.from_numpy, batch)),
                                  prior=torch.from_numpy(prior))
@@ -113,7 +115,7 @@ def test_validate_acoustic_matches_jax():
 def _stepped_state(seed):
     mc = port_config(tiny_jax_config())
     torch.manual_seed(seed)
-    state = create_acoustic_train_state(build_acoustic_models(mc), "cpu", seed=seed)
+    state = create_stage_train_state(build_models(mc), "cpu", "acoustic", seed=seed)
     ctx = StepContext(mc, Config().loss_weight.model_dump(), NormalizationStats(),
                       stage_steps=10)
     step = make_acoustic_step(ctx)
@@ -152,7 +154,9 @@ def runs(tmp_path_factory):
     cfg = {
         "training": {"log_interval": 2, "data_workers": 2, "val_interval": 2,
                      "save_interval": 1, "mixed_precision": "bf16"},
-        "training_plan": {"acoustic": {"epochs": 2, "probe_batch_max": 2, "lr": 1e-4}},
+        "training_plan": {"acoustic": {"epochs": 2, "probe_batch_max": 2, "lr": 1e-4},
+                          **{stage: {"epochs": 0, "probe_batch_max": 2, "lr": 1e-4}
+                             for stage in ("textual", "duration")}},
         "dataset": {"path": data},
         "validation": {"sample_count": 1},
     }
@@ -166,7 +170,7 @@ def runs(tmp_path_factory):
         result = runner.invoke(train_cli, [
             "train", "--stage", "acoustic", "--config", str(root / "config.yml"),
             "--model-config", str(root / "model.yml"), "--out", str(root / out),
-            "--device", "cpu", *extra], standalone_mode=False)
+            "--device", "cpu", "--record-steps", *extra], standalone_mode=False)
         assert result.exit_code == 0, result.output + repr(result.exception)
         return result.return_value
 
@@ -179,7 +183,7 @@ def runs(tmp_path_factory):
 
 def test_train_acoustic_through_the_cli(runs):
     root, full, _resumed, ckpts = runs
-    total = full.manifest.current_total_step
+    total = full.stage_manifests["acoustic"].current_total_step
     assert total == 4 and len(full.step_metrics) == total
     keys = {"mel", "multi_phase", "generator", "slm", "discriminator", "lr",
             "mrd0_lr_mult", "mrd1_lr_mult", "mrd2_lr_mult", "disc_lr_mult"}
@@ -212,8 +216,8 @@ def test_unported_stages_and_missing_cuda_raise(runs, tmp_path):
     root, *_ = runs
     runner = CliRunner()
     args = ["train", "--config", str(root / "config.yml"), "--out", str(tmp_path)]
-    result = runner.invoke(train_cli, [*args, "--stage", "textual", "--device", "cpu"])
-    assert result.exit_code != 0 and "not ported yet" in result.output
+    result = runner.invoke(train_cli, [*args, "--stage", "style", "--device", "cpu"])
+    assert result.exit_code != 0 and "Invalid value for '--stage'" in result.output
     if not torch.cuda.is_available():
         result = runner.invoke(train_cli, args, standalone_mode=False)
         assert isinstance(result.exception, RuntimeError)
@@ -223,7 +227,7 @@ def test_unported_stages_and_missing_cuda_raise(runs, tmp_path):
 def test_acoustic_reset_stage_and_foreign_checkpoints(runs, tmp_path, monkeypatch):
     """``--reset-stage`` keeps an acoustic checkpoint's weights but starts
     the counters at 0; an alignment checkpoint cannot seed the acoustic
-    state (it holds no acoustic module) and raises."""
+    state (it holds no module of the later stages) and raises."""
     from stylish_tts_torch.config import load_config_yaml, load_model_config_yaml
     from stylish_tts_torch.trainer import loop as loop_mod
 
@@ -233,11 +237,12 @@ def test_acoustic_reset_stage_and_foreign_checkpoints(runs, tmp_path, monkeypatc
     mc = load_model_config_yaml(str(root / "model.yml"))
     seen = {}
 
-    def fake_run(self, state, *args):
-        seen["step"], seen["skip"], seen["manifest"] = state.step, args[-1], self.manifest
+    def fake_run(self, stage, state, *args):
+        if stage == "acoustic":
+            seen["step"], seen["skip"], seen["manifest"] = state.step, args[-1], self.manifest
         return state
 
-    monkeypatch.setattr(loop_mod.Trainer, "run_acoustic", fake_run)
+    monkeypatch.setattr(loop_mod.Trainer, "run_stage", fake_run)
     trainer = loop_mod.Trainer(config, mc, str(tmp_path / "o"), device="cpu")
     ckpt = str(root / "full" / "acoustic" / ckpts[1])  # epoch 1, its second step
     trainer.train("acoustic", checkpoint=ckpt)
@@ -245,7 +250,10 @@ def test_acoustic_reset_stage_and_foreign_checkpoints(runs, tmp_path, monkeypatc
     trainer.train("acoustic", checkpoint=ckpt, reset_stage=True)
     assert seen["step"] == 0 and seen["skip"] == 0
     assert seen["manifest"] == Manifest(stage="acoustic")
-    foreign = save_checkpoint(str(tmp_path / "align"), _stepped_state(0)[0],
+    from stylish_tts_torch.models import TextAligner
+
+    aligner_state = create_train_state(TextAligner(hidden_dim=32), 179, "cpu")
+    foreign = save_checkpoint(str(tmp_path / "align"), aligner_state,
                               Manifest(stage="alignment"), config, mc, NormalizationStats())
-    with pytest.raises(ValueError, match="not an acoustic checkpoint"):
+    with pytest.raises(ValueError, match="holds no module of the acoustic"):
         trainer.train("acoustic", checkpoint=foreign)

@@ -142,7 +142,7 @@ def runs(tmp_path_factory):
     def run(out, *extra):
         result = runner.invoke(train_cli, [
             "train-align", "--config", str(cfg_path), "--out", str(root / out),
-            "--device", "cpu", *extra], standalone_mode=False)
+            "--device", "cpu", "--record-steps", *extra], standalone_mode=False)
         assert result.exit_code == 0, result.output + repr(result.exception)
         return result.return_value
 
