@@ -33,7 +33,8 @@ Phases (any failure exits non-zero):
    the T-step chain that every CTA walks; the per-frame time of the
    one-sequence runs, fitted over S;
 5. synthesis at the full default ``ModelConfig()`` on ``cuda``: a package
-   of seeded random weights written by the port's ``export_checkpoint`` in
+   of seeded random weights (the six modules of ``build_models`` that a
+   package holds) written by the port's ``export_checkpoint`` in
    the JAX layout (the F0 head's bias set to 150 Hz, so the sine source
    runs its harmonics), a static voicepack of seeded styles, eight phoneme
    lines, one per text bucket up to 512; ``speak`` through the port's CLI,
@@ -94,9 +95,30 @@ Phases (any failure exits non-zero):
    ``chiprun_out/profile_{acoustic,textual,duration}_step.json``), WavLM's
    loss forward and backward and the textual step's frozen speech
    predictor forward and backward timed alone for their shares;
-8. print the synthesis, front-end, acoustic and later-stage summary lines,
-   the ``kernels`` JSON line (launch counts of the front end's
-   ``train-align``), then the device line last.
+8. the export of the voice phase 7 trained, in phase 6's directory, so that
+   the run goes through the whole recipe (``pitch`` -> ``train-align`` ->
+   ``align`` -> ``train`` -> ``convert`` -> ``voicepack`` -> ``speak``):
+   ``convert`` of the duration stage's last checkpoint (the six inference
+   modules, every leaf the checkpoint's bitwise; finite pitch stats; the
+   duration stats' keys); ``voicepack`` static and ``--dynamic`` on the
+   train split (the styles of a batch of 8 on the card against the CPU,
+   1e-4 of each style's largest magnitude; its time); ``speak`` from that
+   package and voicepack on the synthesis phase's 8 lines (finite,
+   non-silent; per line the two-phase path as long as the predicted
+   durations times the hop and the fused path no longer, ``speak``'s wav
+   the fused lines; RTF at B=1 on both paths);
+   ``slm-cache`` over both splits with the seeded random WavLM (a batch of 8
+   on the card against the CPU, 2e-3 of each state's largest magnitude,
+   float16 storage on both; MB, seconds), then the acoustic stage alone for
+   2 steps on a corpus of the first clips reading the cache (every step's
+   slm term the cached form, finite), and the same with one fingerprint
+   byte flipped raising before a step; ``pitch --method rmvpe`` with seeded
+   weights in the reference layout into a cache of its own (a batch of 8
+   on the card against the CPU: salience 1e-4 absolute, voicing >= 99 %,
+   F0 1e-3 relative; its time beside YIN's);
+9. print the synthesis, front-end, acoustic, later-stage and recipe summary
+   lines, the ``kernels`` JSON line (launch counts of the front end's
+   ``train-align``, the recipe's), then the device line last.
 
 Tolerances: the kernels carry the trellis as float-float pairs and
 normalise gamma per frame (see csrc/ctc.cu), so they are held against the
@@ -770,18 +792,18 @@ def write_speak_inputs(torch, root: Path):
 
     from stylish_tts_torch.config import ModelConfig
     from stylish_tts_torch.export.package import export_checkpoint
-    from stylish_tts_torch.models import build_inference_models
+    from stylish_tts_torch.models import INFERENCE_MODELS, build_models
     from stylish_tts_torch.trainer.normalization import NormalizationStats
     from stylish_tts_torch.tts.voicepack import build_static_pack, save_static_voicepack
 
     torch.manual_seed(0)
     mc = ModelConfig()
-    models = build_inference_models(mc)
+    models = build_models(mc)
     with torch.no_grad():
         # a voice's F0 (~150 Hz) out of the random pitch head, so that the
         # sine source runs its harmonics, as it does for a trained voice
         models["pitch_energy_predictor"].f0_proj.bias.fill_(F0_BIAS_HZ)
-    n_params = {k: sum(p.numel() for p in m.parameters()) for k, m in models.items()}
+    n_params = {k: sum(p.numel() for p in models[k].parameters()) for k in INFERENCE_MODELS}
     export_checkpoint(models, mc, NormalizationStats(), str(root / "pkg"))
     rng = np.random.default_rng(1)
     styles = {k: (0.5 * rng.standard_normal((400, mc.style_dim))).astype(np.float32)
@@ -1148,13 +1170,15 @@ def front_config(data: Path, path: Path) -> Path:
     return path
 
 
-def cli(torch, *args):
-    """One command of the port's training CLI, in this process; returns
-    what the command returns and its wall seconds (synchronised)."""
+def cli(torch, *args, device=True):
+    """One command of the port's training CLI, in this process (on ``cuda``
+    unless ``device`` is False: ``convert`` takes none); returns what the
+    command returns and its wall seconds (synchronised)."""
     from stylish_tts_torch.cli import train_cli
 
     t0 = time.time()
-    rv = train_cli.main([*args, "--device", "cuda"], standalone_mode=False)
+    rv = train_cli.main([*args, *(["--device", "cuda"] if device else [])],
+                        standalone_mode=False)
     torch.cuda.synchronize()
     return rv, time.time() - t0
 
@@ -2399,6 +2423,372 @@ def phase_stages(torch, work: Path, card: str):
     return report
 
 
+# ---------------------------------------------------------------- phase 8
+
+# the export of the voice that phase 7 trained, on phase 6's corpus:
+# ``convert`` of the duration stage's last checkpoint, ``voicepack`` (static
+# and dynamic), ``speak``; ``slm-cache`` and the acoustic stage reading it;
+# ``pitch --method rmvpe`` with seeded weights. Card against CPU on one batch
+# of 8: styles within 1e-4 and slm states within 2e-3 of each one's largest
+# magnitude (the states stored float16 on both sides), RMVPE salience 1e-4
+# absolute, voicing >= 99 %, F0 1e-3 relative
+RECIPE_BATCH = 8
+STYLE_TOL = 1e-4
+SLM_TOL = 2e-3
+RMVPE_SALIENCE_ATOL = 1e-4
+RMVPE_RERUN_RTOL = 1e-5  # the command's F0 against a second run on the card
+SLM_TRAIN_CLIPS = 16  # the slm run's train split: 2 steps at B = 8
+SLM_VAL_CLIPS = 4
+DURATION_STATS_KEYS = {"frames_per_token_p05", "frames_per_token_p50",
+                       "frames_per_token_p95"}
+
+
+def first_clips(data: Path, n: int, **caches):
+    """The first ``n`` train clips (one time bin) as a dataset."""
+    ds = dataset(data, "train", **caches)
+    ds.segments = ds.segments[:n]
+    return ds
+
+
+def recipe_convert(torch, work, ckpt):
+    """``convert``: the six modules, every leaf the checkpoint's bitwise,
+    finite pitch stats, the duration stats' keys."""
+    import numpy as np
+    from safetensors.numpy import load_file
+
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.convert.from_jax import module_to_jax_flat
+    from stylish_tts_torch.models import INFERENCE_MODULES, build_models
+
+    pkg = work / "pkg"
+    _, seconds = cli(torch, "convert", "--config", str(work / "acoustic.yml"),
+                     "--model-config", str(work / "acoustic_model.yml"),
+                     "--checkpoint", str(ckpt), "--out", str(pkg), device=False)
+    flat = load_file(str(pkg / "params.safetensors"))
+    modules = sorted({k.split("/", 1)[0] for k in flat})
+    if modules != sorted(INFERENCE_MODULES):
+        fail(f"convert wrote the modules {modules}, not {sorted(INFERENCE_MODULES)}")
+    saved = saved_models(torch, ckpt)
+    skeleton = build_models(ModelConfig())
+    expected = {f"{name}/{k}": v for name in INFERENCE_MODULES
+                for k, v in module_to_jax_flat(skeleton[name], saved[name]).items()}
+    differ = [k for k, v in expected.items() if not np.array_equal(flat.get(k), v)]
+    if differ or set(flat) != set(expected):
+        fail(f"convert: {len(differ)} leaves differ from the checkpoint's, keys "
+             f"{sorted(set(flat) ^ set(expected))[:5]} on one side only")
+    meta = json.loads((pkg / "metadata.json").read_text(encoding="utf-8"))
+    stats = (meta["pitch_log2_mean"], meta["pitch_log2_std"])
+    if not all(np.isfinite(stats)) or set(meta["duration_stats"]) != DURATION_STATS_KEYS:
+        fail(f"convert's stats: pitch log2 {stats}, duration {meta['duration_stats']}")
+    log(f"convert: {len(flat)} leaves of {len(modules)} modules bitwise in {seconds:.2f} s; "
+        f"pitch log2 {stats[0]:.4f} +- {stats[1]:.4f}; duration {meta['duration_stats']}")
+    return pkg, {"seconds": seconds, "modules": len(modules), "leaves": len(flat),
+                 "pitch_log2": stats, "duration_stats": meta["duration_stats"]}
+
+
+def recipe_voicepack(torch, data, work, ckpt):
+    """``voicepack`` and ``voicepack --dynamic`` on the train split; the
+    styles of one batch of 8 on the card against the CPU; its time."""
+    import numpy as np
+
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.trainer.checkpoint import load_stage_models
+    from stylish_tts_torch.tts.voicepack import encode_all_styles, load_voicepack
+
+    args = ["--config", str(work / "acoustic.yml"), "--model-config",
+            str(work / "acoustic_model.yml"), "--checkpoint", str(ckpt)]
+    static, dynamic = work / "voicepack.safetensors", work / "voicepack_dynamic.safetensors"
+    styles, seconds = cli(torch, "voicepack", *args, "--out", str(static))
+    _, dyn_seconds = cli(torch, "voicepack", *args, "--out", str(dynamic), "--dynamic")
+    n = styles["lengths"].shape[0]
+    pack, dyn = load_voicepack(str(static)), load_voicepack(str(dynamic))
+    if (pack["kind"], dyn["kind"]) != ("static", "dynamic") or pack["speech"].shape[0] != 512 \
+            or dyn["embedding"].shape[0] != n:
+        fail(f"voicepacks: {pack['kind']} {pack['speech'].shape}, {dyn['kind']} "
+             f"{dyn['embedding'].shape} for {n} segments")
+
+    mc = ModelConfig()
+    ds = first_clips(data, RECIPE_BATCH, pitch_path="pitch.safetensors")
+    out = {}
+    for device in ("cuda", "cpu"):
+        models, norm = load_stage_models(str(ckpt), mc, device)
+        out[device] = encode_all_styles(ds, models, norm, mc)
+        if device == "cuda":
+            card_models = models
+    errs = {}
+    for key in ("speech", "pe", "duration"):
+        ref = out["cpu"][key]
+        scale = float(np.abs(ref).max())
+        errs[key] = max(float(np.abs(out["cuda"][key] - ref).max()),
+                        float(np.abs(styles[key][:RECIPE_BATCH] - ref).max())) / scale
+    if not all(np.isfinite(styles[k]).all() for k in ("speech", "pe", "duration")) \
+            or max(errs.values()) > STYLE_TOL:
+        fail(f"styles on the card against the CPU (the command's and a direct call): "
+             f"{errs} of the largest magnitude (<= {STYLE_TOL})")
+    batch_ms = median_ms(torch, lambda: encode_all_styles(ds, card_models, norm, mc),
+                         n=N_FRONT_TIMED, warmup=1, sleep=False)
+    log(f"voicepack: {n} segments in {seconds:.2f} s (dynamic {dyn_seconds:.2f} s); a batch "
+        f"of {RECIPE_BATCH} {batch_ms:.2f} ms; card vs CPU {errs}")
+    return static, {"seconds": seconds, "dynamic_seconds": dyn_seconds, "segments": n,
+                    "card_vs_cpu": errs, "batch_ms": batch_ms}
+
+
+def recipe_speak(torch, work, pkg_dir, voicepack):
+    """``speak`` from the exported package and voicepack on the synthesis
+    phase's 8 lines: finite, non-silent. Per line, the two-phase path is as
+    long as the predicted durations (``durations``, rounded) times the hop,
+    and the fused path, which ``speak`` takes, no longer (shorter where the
+    durations overflow its frame bucket and are squeezed); ``speak``'s wav
+    is the fused lines end to end. RTF at B = 1 on both paths."""
+    import numpy as np
+
+    from stylish_tts_torch.cli import tts_cli
+    from stylish_tts_torch.data.wav import read_wav
+    from stylish_tts_torch.export.package import InferencePackage
+    from stylish_tts_torch.tts.voicepack import load_voicepack, lookup_static_style
+
+    lines = speak_lines(2, SPEAK_TOKENS)
+    (work / "lines.txt").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    wav_path = work / "speech.wav"
+    t0 = time.time()
+    tts_cli.main(["speak", "--model", str(pkg_dir), "--voicepack", str(voicepack),
+                  "--text", str(work / "lines.txt"), "--out", str(wav_path),
+                  "--device", "cuda"], standalone_mode=False)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    pkg = InferencePackage(str(pkg_dir), device="cuda")
+    pack = load_voicepack(str(voicepack))
+    hop = pkg.mc.hop_length * pkg.mc.coarse_multiplier
+    wav = read_wav(str(wav_path), pkg.mc.sample_rate)
+    rms = float(np.sqrt(np.mean(np.square(wav))))
+    if not np.isfinite(wav).all() or rms < 1e-3:
+        fail(f"speak from the trained voice: rms {rms:.2e}, finite "
+             f"{bool(np.isfinite(wav).all())}")
+    wall = {"fused": 0.0, "two_phase": 0.0}
+    lengths = {"fused": [], "two_phase": [], "predicted": []}
+    for line in lines:
+        texts, text_lengths, (_, _, du) = line_inputs(torch, pkg, pack, line, "cuda")
+        d = pkg.durations(texts, text_lengths, du).cpu().numpy()
+        lengths["predicted"].append(int(round(float(d.sum()))) * hop)
+        tokens = pkg.tokenize(line)
+        styles = lookup_static_style(pack, tokens.shape[0])
+        for path, fused in (("fused", True), ("two_phase", False)):
+            times = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                audio = pkg.generate_speech(tokens, *styles, fused=fused)
+                times.append(time.perf_counter() - t1)
+            wall[path] += statistics.median(times)
+            lengths[path].append(audio.shape[0])
+    if lengths["two_phase"] != lengths["predicted"] \
+            or any(f > t for f, t in zip(lengths["fused"], lengths["two_phase"])) \
+            or wav.shape[0] != sum(lengths["fused"]):
+        fail(f"speak from the trained voice: {wav.shape[0]} samples; per line fused "
+             f"{lengths['fused']}, two-phase {lengths['two_phase']}, predicted "
+             f"{lengths['predicted']}")
+    squeezed = sum(f < t for f, t in zip(lengths["fused"], lengths["two_phase"]))
+    audio_s = {k: sum(v) / pkg.mc.sample_rate for k, v in lengths.items()}
+    rtf = {k: wall[k] / audio_s[k] for k in wall}
+    log(f"speak from the trained voice: {wav.shape[0] / pkg.mc.sample_rate:.2f} s of audio "
+        f"({squeezed} of {len(lines)} lines squeezed into their bucket; two-phase "
+        f"{audio_s['two_phase']:.2f} s), rms {rms:.4f}, {seconds:.2f} s; RTF at B=1 fused "
+        f"{rtf['fused']:.5f}, two-phase {rtf['two_phase']:.5f}")
+    return {"seconds": seconds, "audio_s": wav.shape[0] / pkg.mc.sample_rate, "rms": rms,
+            "squeezed_lines": squeezed, "rtf_b1": rtf["fused"],
+            "rtf_b1_two_phase": rtf["two_phase"], "two_phase_audio_s": audio_s["two_phase"]}
+
+
+def slm_corpus(data: Path, root: Path, cache, flip: bool = False) -> Path:
+    """A corpus of the first clips of each split beside ``data`` (its wavs and
+    caches by link), with their entries of the slm cache; one fingerprint
+    byte flipped if asked."""
+    import numpy as np
+
+    from stylish_tts_torch.data.caches import save_cache
+    from stylish_tts_torch.dataprep.slm_cache import FINGERPRINT_KEY
+
+    root.mkdir()
+    names = []
+    for split, n in (("train", SLM_TRAIN_CLIPS), ("val", SLM_VAL_CLIPS)):
+        lines = (data / f"{split}-list.txt").read_text(encoding="utf-8").splitlines()[:n]
+        (root / f"{split}-list.txt").write_text("\n".join(lines) + "\n", encoding="utf-8")
+        names += [line.split("|", 1)[0] for line in lines]
+    for name in ("wav-dir", "pitch.safetensors", "alignment.safetensors"):
+        (root / name).symlink_to(data / name)
+    fingerprint = np.array(cache[FINGERPRINT_KEY])
+    if flip:
+        fingerprint[0] ^= 1
+    save_cache(str(root / "slm.safetensors"),
+               {**{k: cache[k] for k in names}, FINGERPRINT_KEY: fingerprint})
+    return root
+
+
+def recipe_slm(torch, data, work):
+    """``slm-cache`` over both splits (the seeded random WavLM); one batch of
+    8 on the card against the CPU; 2 steps of the acoustic stage (the later
+    stages at 0 epochs) on a corpus of its first clips, reading the cache
+    (every step's slm term the cached form, finite); the same with one
+    fingerprint byte flipped raises before a step."""
+    import numpy as np
+    import yaml
+
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.data.caches import load_cache
+    from stylish_tts_torch.dataprep.slm_cache import FINGERPRINT_KEY, compute_slm_cache
+    from stylish_tts_torch.models import slm
+    from stylish_tts_torch.trainer import loop
+
+    cfg, model_cfg = work / "acoustic.yml", work / "acoustic_model.yml"
+    _, seconds = cli(torch, "slm-cache", "--config", str(cfg), "--model-config",
+                     str(model_cfg), "--out", str(work / "slm_out"))
+    path = data / "slm.safetensors"
+    cache = load_cache(str(path))
+    mb = path.stat().st_size / 1e6
+    mc = ModelConfig()
+    ds = first_clips(data, RECIPE_BATCH)
+    wavlm = slm.load_wavlm(mc.slm.model, allow_random_fallback=True, device="cpu")
+    cpu = compute_slm_cache(ds, wavlm)
+    if not np.array_equal(cpu[FINGERPRINT_KEY], cache[FINGERPRINT_KEY]):
+        fail("slm cache: the card's fingerprint is not the CPU's")
+    err = 0.0
+    for seg in ds.segments:
+        a, b = cache[seg.wav_path].astype(np.float32), cpu[seg.wav_path].astype(np.float32)
+        if a.shape != b.shape:
+            fail(f"slm states {a.shape} on the card, {b.shape} on the CPU")
+        err = max(err, max(float(np.abs(a[i] - b[i]).max() / np.abs(b[i]).max())
+                           for i in range(a.shape[0])))
+    if err > SLM_TOL:
+        fail(f"slm states on the card against the CPU: {err:.3e} of the largest "
+             f"magnitude (<= {SLM_TOL})")
+
+    plan = yaml.safe_load(cfg.read_text(encoding="utf-8"))
+    plan["training"].update(val_interval=10**6, save_interval=10**6)
+    plan["training_plan"]["acoustic"]["epochs"] = 1
+    for stage in ("textual", "duration"):  # the acoustic stage's steps alone
+        plan["training_plan"][stage]["epochs"] = 0
+    calls = {"cached": 0, "inline": 0}
+    cached, inline = slm.wavlm_loss_cached, loop.wavlm_loss
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    runs = {}
+    slm.wavlm_loss_cached, loop.wavlm_loss = count("cached", cached), count("inline", inline)
+    try:
+        for name, flip in (("matching", False), ("foreign", True)):
+            corpus = slm_corpus(data, work / f"slm_{name}", cache, flip=flip)
+            plan["dataset"]["path"] = str(corpus)
+            run_cfg = work / f"slm_{name}.yml"
+            run_cfg.write_text(yaml.safe_dump(plan), encoding="utf-8")
+            args = ("train", "--stage", "acoustic", "--config", str(run_cfg),
+                    "--model-config", str(model_cfg), "--out", str(work / f"slm_{name}_out"),
+                    "--record-steps")
+            try:
+                runs[name] = cli(torch, *args)
+            except RuntimeError as exc:
+                runs[name] = exc
+            if name == "matching":
+                matched = dict(calls)
+    finally:
+        slm.wavlm_loss_cached, loop.wavlm_loss = cached, inline
+    if isinstance(runs["matching"], Exception):
+        fail(f"the acoustic stage on a matching slm cache raised: {runs['matching']!r}")
+    trainer, train_s = runs["matching"]
+    values = [m["slm"] for m in trainer.step_metrics]
+    if len(values) != 2 or not np.isfinite(values).all() or matched != {"cached": 2,
+                                                                       "inline": 0}:
+        fail(f"the acoustic stage on the slm cache: slm {values}, calls {matched}")
+    foreign = runs["foreign"]
+    if not isinstance(foreign, RuntimeError) or "DIFFERENT WavLM" not in str(foreign) \
+            or calls != matched:
+        fail(f"a cache with a flipped fingerprint byte gave {foreign!r}, calls {calls}")
+    log(f"slm-cache: {len(cache) - 1} segments, {mb:.1f} MB in {seconds:.2f} s; card vs "
+        f"CPU {err:.2e}; 2 acoustic steps on it in {train_s:.2f} s, slm {values}; "
+        f"a flipped fingerprint raised")
+    return {"seconds": seconds, "mb": mb, "segments": len(cache) - 1, "card_vs_cpu": err,
+            "train_s": train_s, "slm": values, "foreign_raised": True}
+
+
+def recipe_rmvpe(torch, data, work):
+    """``pitch --method rmvpe`` with seeded weights in the reference layout
+    (a cache of its own); one batch of 8 on the card against the CPU; the
+    batch's time."""
+    import numpy as np
+    import yaml
+    from safetensors.torch import save_file
+
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.data.caches import load_cache
+    from stylish_tts_torch.dataprep.rmvpe import (
+        RMVPEPitchExtractor, decode_f0, random_rmvpe_state_dict,
+    )
+
+    weights = work / "rmvpe.safetensors"
+    save_file(random_rmvpe_state_dict(0), str(weights))
+    cfg = work / "rmvpe.yml"
+    cfg.write_text(yaml.safe_dump({"dataset": {"path": str(data),
+                                               "pitch_path": "pitch_rmvpe.safetensors"}}),
+                   encoding="utf-8")
+    _, seconds = cli(torch, "pitch", "--config", str(cfg), "--out", str(work / "rmvpe_out"),
+                     "--method", "rmvpe", "--rmvpe-weights", str(weights))
+    cache = load_cache(str(data / "pitch_rmvpe.safetensors"))
+    mc = ModelConfig()
+    ds = first_clips(data, RECIPE_BATCH)
+    ds.time_bins()
+    items = [ds.load_segment(i) for i in range(RECIPE_BATCH)]
+    audio = np.stack([it["audio"] for it in items])
+    frames = audio.shape[1] // mc.hop_length
+    card = RMVPEPitchExtractor(str(weights), mc.sample_rate, mc.hop_length, device="cuda")
+    cpu = RMVPEPitchExtractor(str(weights), mc.sample_rate, mc.hop_length, device="cpu")
+    sal_card, sal_cpu = card.salience(audio), cpu.salience(audio)
+    sal_err = float((sal_card.cpu() - sal_cpu).abs().max())
+    f0_card = decode_f0(sal_card).cpu().numpy()[:, :frames]
+    f0_cpu = decode_f0(sal_cpu).numpy()[:, :frames]
+    written = np.stack([cache[it["path"]] for it in items])
+    # the command's extractor and this one may take other cuDNN algorithms
+    written_err = float(np.abs(written - f0_card).max() / np.abs(f0_card).max())
+    agree = float(np.mean((f0_card > 0) == (f0_cpu > 0)))
+    both = (f0_card > 0) & (f0_cpu > 0)
+    rel = float(np.max(np.abs(f0_card[both] / f0_cpu[both] - 1))) if both.any() else 0.0
+    if (len(cache) != len(dataset(data, "train")) + len(dataset(data, "val"))
+            or written_err > RMVPE_RERUN_RTOL or sal_err > RMVPE_SALIENCE_ATOL
+            or agree < PITCH_VOICING_AGREE or rel > PITCH_F0_RTOL):
+        fail(f"pitch --method rmvpe: {len(cache)} entries, the command's F0 "
+             f"{written_err:.2e} off the extractor's (<= {RMVPE_RERUN_RTOL}); card vs CPU salience "
+             f"{sal_err:.2e} (<= {RMVPE_SALIENCE_ATOL}), voicing {agree:.4f} (>= "
+             f"{PITCH_VOICING_AGREE}), F0 {rel:.2e} (<= {PITCH_F0_RTOL})")
+    batch_ms = median_ms(torch, lambda: card.infer(audio), n=N_FRONT_TIMED, warmup=1,
+                         sleep=False)
+    log(f"pitch --method rmvpe: {len(cache)} clips in {seconds:.2f} s; a batch of "
+        f"{RECIPE_BATCH} {batch_ms:.2f} ms; card vs CPU salience {sal_err:.2e}, voicing "
+        f"{agree:.4f}, F0 {rel:.2e}")
+    return {"seconds": seconds, "batch_ms": batch_ms, "salience_max_abs_err": sal_err,
+            "voicing_agree": agree, "f0_max_rel_err": rel}
+
+
+def phase_recipe(torch, work: Path):
+    """The export of phase 7's voice, on phase 6's corpus and caches (the
+    same directory): convert -> voicepack -> speak; slm-cache and the
+    acoustic stage on it; pitch --method rmvpe."""
+    data = work / "data"
+    t0 = time.time()
+    stage_dir = work / "acoustic_out" / "duration"
+    ckpt = stage_dir / checkpoint_dirs(stage_dir)[-1]
+    pkg, report = recipe_convert(torch, work, ckpt)
+    report = {"convert": report}
+    voicepack, report["voicepack"] = recipe_voicepack(torch, data, work, ckpt)
+    report["speak"] = recipe_speak(torch, work, pkg, voicepack)
+    report["slm_cache"] = recipe_slm(torch, data, work)
+    report["rmvpe"] = recipe_rmvpe(torch, data, work)
+    report["wall_s"] = time.time() - t0
+    log(f"recipe export phase: {report['wall_s']:.1f} s")
+    return report
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2443,6 +2833,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_front_") as tmp:
         front = phase_front_end(torch, Path(tmp), card)
         acoustic = phase_stages(torch, Path(tmp), card)
+        recipe = phase_recipe(torch, Path(tmp))
     launches = front["train_align"]["launches"]
     if not all(launches.values()):
         fail(f"a CTC kernel of the front end's train-align never launched: {launches}")
@@ -2467,7 +2858,7 @@ def main() -> int:
               "step_ms": step_ms, "step_profile": profile, "checks": checks,
               "timings": timings, "frame_fit": fit, "kernels": kernels,
               "front_end": front, "synthesis": synthesis, "acoustic": acoustic,
-              "wall_s": time.time() - t_start}
+              "recipe": recipe, "wall_s": time.time() - t_start}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     log(f"total {time.time() - t_start:.1f} s; details in {OUT / 'chip_smoke.json'}")
@@ -2539,6 +2930,29 @@ def main() -> int:
         "textual_frozen_speech_share": lmv["textual"]["frozen_speech_share"],
         **{f"{s}_groups_ms": {g: v["ms"] for g, v in lmv[s]["groups"].items()} for s in lmv}}}),
         flush=True)
+    rv, sl, rm = recipe["voicepack"], recipe["slm_cache"], recipe["rmvpe"]
+    print(json.dumps({"recipe": {
+        "card": card, "wall_s": recipe["wall_s"],
+        "convert_s": recipe["convert"]["seconds"], "convert_modules": recipe["convert"]["modules"],
+        "convert_leaves_bitwise": recipe["convert"]["leaves"],
+        "pitch_log2": recipe["convert"]["pitch_log2"],
+        "duration_stats": recipe["convert"]["duration_stats"],
+        "voicepack_s": rv["seconds"], "voicepack_dynamic_s": rv["dynamic_seconds"],
+        "styles_batch8_ms": rv["batch_ms"], "styles_card_vs_cpu": rv["card_vs_cpu"],
+        "speak_s": recipe["speak"]["seconds"], "speak_audio_s": recipe["speak"]["audio_s"],
+        "speak_rms": recipe["speak"]["rms"], "rtf_b1": recipe["speak"]["rtf_b1"],
+        "speak_squeezed_lines": recipe["speak"]["squeezed_lines"],
+        "rtf_b1_two_phase": recipe["speak"]["rtf_b1_two_phase"],
+        "two_phase_audio_s": recipe["speak"]["two_phase_audio_s"],
+        "random_weights_rtf_b1": synthesis["times"]["rtf_b1"],
+        "slm_cache_s": sl["seconds"], "slm_cache_mb": sl["mb"],
+        "slm_card_vs_cpu": sl["card_vs_cpu"], "slm_steps": sl["slm"],
+        "slm_train_s": sl["train_s"], "slm_foreign_cache_raised": sl["foreign_raised"],
+        "rmvpe_s": rm["seconds"], "rmvpe_batch8_ms": rm["batch_ms"],
+        "yin_batch8_ms": front["pitch"]["batch_ms"],
+        "rmvpe_salience_max_abs_err": rm["salience_max_abs_err"],
+        "rmvpe_voicing_agree": rm["voicing_agree"],
+        "rmvpe_f0_max_rel_err": rm["f0_max_rel_err"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,14 @@
 """Command-line interface of the port: ``python -m stylish_tts_torch.cli``
 (training) and ``python -m stylish_tts_torch.cli_tts`` (synthesis).
 
-Counterpart of ``stylish_tts_tpu/cli.py``; ported so far: ``pitch``
-(YIN), ``train-align`` (with ``--checkpoint``), ``train --stage
-acoustic|textual|duration`` (with ``--checkpoint`` and ``--reset-stage``),
-``align``, ``align-textgrid`` and ``speak``. Every command runs on ``--device cuda``
-unless told ``--device cpu``, and raises where CUDA is missing.
+Counterpart of ``stylish_tts_tpu/cli.py``; ported so far: ``pitch`` (YIN,
+or RMVPE from a local ``--rmvpe-weights`` file), ``train-align`` (with
+``--checkpoint``), ``train --stage acoustic|textual|duration`` (with
+``--checkpoint`` and ``--reset-stage``), ``slm-cache``, ``align``,
+``align-textgrid``, ``convert``, ``voicepack [--dynamic]`` and ``speak``.
+Every command that computes runs on ``--device cuda`` unless told
+``--device cpu``, and raises where CUDA is missing; ``convert`` is file work
+on the CPU and takes no device.
 """
 
 from __future__ import annotations
@@ -80,12 +83,18 @@ def train(config_path, model_config_path, out_dir, stage, checkpoint, reset_stag
     return trainer
 
 
-def _load_configs(config_path, model_config_path):
+def _load_configs(config_path, model_config_path, checkpoint=None):
+    """The configs; a checkpoint's own ``model_config.json`` wins over the
+    YAML, as in the JAX command."""
     config = load_config_yaml(config_path) if config_path else Config()
-    model_config = (
-        load_model_config_yaml(model_config_path) if model_config_path
-        else ModelConfig()
-    )
+    ckpt_mc = checkpoint and osp.join(checkpoint, "model_config.json")
+    if ckpt_mc and osp.isfile(ckpt_mc):
+        with open(ckpt_mc, encoding="utf-8") as f:
+            model_config = ModelConfig.model_validate_json(f.read())
+    elif model_config_path:
+        model_config = load_model_config_yaml(model_config_path)
+    else:
+        model_config = ModelConfig()
     return config, model_config
 
 
@@ -208,13 +217,18 @@ def _write_textgrid(path, phonemes, durations, hop_seconds):
 @click.option("--model-config", "model_config_path", type=click.Path(exists=True))
 @click.option("--out", "out_dir", required=True, type=click.Path())
 @click.option("--method", default="yin", type=click.Choice(["yin", "rmvpe"]),
-              help="'yin' (batched DSP on the device); 'rmvpe' is not ported yet")
+              help="'yin' (batched DSP on the device) or 'rmvpe' (the neural "
+                   "estimator; needs --rmvpe-weights)")
+@click.option("--rmvpe-weights", default=None, type=click.Path(exists=True),
+              help="a local rmvpe.safetensors in the reference layout (nothing is "
+                   "downloaded)")
 @click.option("--device", default="cuda", show_default=True, help=DEVICE_HELP)
-def pitch(config_path, model_config_path, out_dir, method, device):
-    """Generate the pitch cache (batched YIN) for both splits."""
-    if method == "rmvpe":
+def pitch(config_path, model_config_path, out_dir, method, rmvpe_weights, device):
+    """Generate the pitch cache (batched YIN or RMVPE) for both splits."""
+    if method == "rmvpe" and rmvpe_weights is None:
         raise click.ClickException(
-            "--method rmvpe is not ported yet; use --method yin"
+            "--method rmvpe needs --rmvpe-weights PATH, a local rmvpe.safetensors "
+            "(the port downloads nothing)"
         )
     from .data.caches import save_cache
     from .dataprep.pitch import extract_pitch_for_dataset
@@ -222,16 +236,113 @@ def pitch(config_path, model_config_path, out_dir, method, device):
 
     config, model_config = _load_configs(config_path, model_config_path)
     trainer = Trainer(config, model_config, out_dir, device=device)
+    extractor = None
+    if method == "rmvpe":
+        from .dataprep.rmvpe import RMVPEPitchExtractor
+
+        extractor = RMVPEPitchExtractor(rmvpe_weights, model_config.sample_rate,
+                                        model_config.hop_length, device=trainer.device)
     cache = {}
     for list_name in (config.dataset.train_data, config.dataset.val_data):
         ds = trainer.build_dataset(list_name)
         cache.update(extract_pitch_for_dataset(
             ds, model_config.hop_length, model_config.sample_rate,
-            device=trainer.device,
+            device=trainer.device, extractor=extractor,
         ))
     out_path = trainer.data_path(config.dataset.pitch_path)
     save_cache(out_path, cache)
     click.echo(f"wrote pitch for {len(cache)} segments to {out_path}")
+
+
+@train_cli.command("slm-cache")
+@click.option("--config", "config_path", required=True, type=click.Path(exists=True))
+@click.option("--model-config", "model_config_path", type=click.Path(exists=True))
+@click.option("--out", "out_dir", required=True, type=click.Path())
+@click.option("--device", default="cuda", show_default=True, help=DEVICE_HELP)
+def slm_cache(config_path, model_config_path, out_dir, device):
+    """Precompute the ground-truth WavLM embeddings of the slm loss for both
+    splits into dataset.slm_path, with the weights' fingerprint; a run that
+    starts at the acoustic stage reads them."""
+    from .dataprep.slm_cache import compute_slm_cache, write_slm_cache
+    from .models.slm import load_wavlm
+    from .trainer.loop import Trainer
+
+    config, model_config = _load_configs(config_path, model_config_path)
+    trainer = Trainer(config, model_config, out_dir, device=device)
+    model = load_wavlm(model_config.slm.model, model_config.slm.allow_random_fallback,
+                       trainer.device)
+    cache = {}
+    for list_name in (config.dataset.train_data, config.dataset.val_data):
+        cache.update(compute_slm_cache(trainer.build_dataset(list_name), model))
+    out_path = trainer.data_path(config.dataset.slm_path)
+    write_slm_cache(out_path, cache)
+    click.echo(f"wrote slm embeddings for {len(cache) - 1} segments to {out_path}")
+
+
+@train_cli.command("convert")
+@click.option("--config", "config_path", required=True, type=click.Path(exists=True))
+@click.option("--model-config", "model_config_path", type=click.Path(exists=True))
+@click.option("--checkpoint", required=True, type=click.Path(exists=True),
+              help="checkpoint directory of the acoustic, textual or duration stage")
+@click.option("--out", "out_dir", required=True, type=click.Path())
+def convert(config_path, model_config_path, checkpoint, out_dir):
+    """Package a checkpoint for inference: the six inference modules in the
+    JAX layout, the model config, and the normalization, pitch and duration
+    stats. File work on the CPU. The JAX --stablehlo option (XLA graphs) has
+    no counterpart."""
+    from .data.caches import load_cache
+    from .export.package import duration_stats_from_cache, export_checkpoint, pitch_log2_stats
+    from .trainer.checkpoint import load_stage_models
+
+    config, model_config = _load_configs(config_path, model_config_path, checkpoint)
+    models, norm = load_stage_models(checkpoint, model_config, "cpu")
+    pitch_path = osp.join(config.dataset.path, config.dataset.pitch_path)
+    pitch_log2_mean, pitch_log2_std = pitch_log2_stats(
+        load_cache(pitch_path) if osp.isfile(pitch_path) else None)
+    align_path = osp.join(config.dataset.path, config.dataset.alignment_path)
+    duration_stats = (duration_stats_from_cache(load_cache(align_path))
+                      if osp.isfile(align_path) else None)
+    export_checkpoint(models, model_config, norm, out_dir,
+                      pitch_log2_mean=pitch_log2_mean, pitch_log2_std=pitch_log2_std,
+                      duration_stats=duration_stats)
+    click.echo(f"wrote inference package to {out_dir}")
+
+
+@train_cli.command("voicepack")
+@click.option("--config", "config_path", required=True, type=click.Path(exists=True))
+@click.option("--model-config", "model_config_path", type=click.Path(exists=True))
+@click.option("--checkpoint", required=True, type=click.Path(exists=True))
+@click.option("--out", "out_path", required=True, type=click.Path())
+@click.option("--dynamic", is_flag=True, default=False,
+              help="per-segment styles + sentence-embedding kNN pack (the hashed "
+                   "embedder)")
+@click.option("--device", default="cuda", show_default=True, help=DEVICE_HELP)
+def voicepack(config_path, model_config_path, checkpoint, out_path, dynamic, device):
+    """Encode the train split's styles into a voicepack (static or dynamic).
+    Returns the styles to callers that run the command in-process."""
+    from .trainer.checkpoint import load_stage_models
+    from .trainer.loop import Trainer
+    from .tts.voicepack import (
+        build_dynamic_pack, build_static_pack, encode_all_styles,
+        save_dynamic_voicepack, save_static_voicepack,
+    )
+
+    config, model_config = _load_configs(config_path, model_config_path, checkpoint)
+    trainer = Trainer(config, model_config, osp.dirname(out_path) or ".", device=device)
+    models, norm = load_stage_models(checkpoint, model_config, trainer.device)
+    ds = trainer.build_dataset(config.dataset.train_data)
+    styles = encode_all_styles(ds, models, norm, model_config)
+    if dynamic:
+        from .textproc.embed import get_embedder
+
+        # the texts in the styles' order (sorted time bins)
+        bins, _ = ds.time_bins()
+        texts = [ds.segments[i].text for _bin, idxs in sorted(bins.items()) for i in idxs]
+        save_dynamic_voicepack(out_path, build_dynamic_pack(styles, texts, get_embedder()))
+    else:
+        save_static_voicepack(out_path, build_static_pack(styles))
+    click.echo(f"wrote voicepack ({styles['lengths'].shape[0]} segments)")
+    return styles
 
 
 @click.group()

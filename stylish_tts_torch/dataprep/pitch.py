@@ -1,7 +1,8 @@
 """Pitch cache generation: batched YIN on the device.
 
 Counterpart of ``stylish_tts_tpu/dataprep/pitch.py`` (``yin_pitch``,
-``extract_pitch_for_dataset``): centered 2W-sample frames, the squared
+``extract_pitch_for_dataset``, which takes RMVPE in YIN's place where
+given one, ``dataprep/rmvpe.py``). YIN: centered 2W-sample frames, the squared
 difference function over lags 0..tau_max, cumulative-mean normalisation,
 the lag pick (first under-threshold run, then its minimum; the global
 minimum where nothing crosses), parabolic refinement, and voicing by the
@@ -105,20 +106,24 @@ def yin_pitch(audio: torch.Tensor, *, hop: int, frames: int,
 
 def extract_pitch_for_dataset(
     dataset, hop_length: int, sample_rate: int, batch_size: int = 8,
-    device="cpu",
+    device="cpu", extractor=None,
 ) -> Dict[str, np.ndarray]:
     """Whole-dataset pitch cache {wav filename: (frames,) F0 Hz}, batched
-    per duration bin."""
+    per duration bin: YIN on ``device``, or ``extractor`` (an
+    ``RMVPEPitchExtractor``, ``dataprep/rmvpe.py``) where given."""
     bins, _ = dataset.time_bins()
     cache: Dict[str, np.ndarray] = {}
     for _bin, idxs in sorted(bins.items()):
         for i in range(0, len(idxs), batch_size):
             chunk = idxs[i: i + batch_size]
             items = [dataset.load_segment(j) for j in chunk]
-            audio = torch.from_numpy(np.stack([it["audio"] for it in items]))
+            audio = np.stack([it["audio"] for it in items])
             frames = audio.shape[1] // hop_length
-            f0 = yin_pitch(audio.to(device), hop=hop_length, frames=frames,
-                           sample_rate=sample_rate).cpu().numpy()
+            if extractor is not None:
+                f0 = extractor.infer(audio)[:, :frames]
+            else:
+                f0 = yin_pitch(torch.from_numpy(audio).to(device), hop=hop_length,
+                               frames=frames, sample_rate=sample_rate).cpu().numpy()
             for k, it in enumerate(items):
                 cache[it["path"]] = f0[k]
     return cache

@@ -57,9 +57,12 @@ def hann_window_padded(win_length: int, n_fft: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=16)
+@torch.inference_mode(False)
 def forward_basis(n_fft: int, win_length: int, device: torch.device) -> torch.Tensor:
     """(n_fft, 2*freq_bins) windowed DFT matrix, columns [real | imag],
-    built once per device (the 2048-point one is 16.8 MB)."""
+    built once per device (the 2048-point one is 16.8 MB). Built outside
+    inference mode, so that a basis first made by synthesis (under
+    ``torch.inference_mode``) can still be saved for a later backward."""
     freq_bins = n_fft // 2 + 1
     n = torch.arange(n_fft, dtype=torch.float64)
     k = torch.arange(freq_bins, dtype=torch.float64)
@@ -78,9 +81,11 @@ def forward_basis(n_fft: int, win_length: int, device: torch.device) -> torch.Te
 
 
 @functools.lru_cache(maxsize=16)
+@torch.inference_mode(False)
 def inverse_basis(n_fft: int, win_length: int, uniform: bool,
                   device: torch.device) -> torch.Tensor:
-    """(2*freq_bins, n_fft) windowed inverse DFT, rows [real; imag]."""
+    """(2*freq_bins, n_fft) windowed inverse DFT, rows [real; imag] (built
+    outside inference mode, as ``forward_basis``)."""
     freq_bins = n_fft // 2 + 1
     n = torch.arange(n_fft, dtype=torch.float64)
     k = torch.arange(freq_bins, dtype=torch.float64)

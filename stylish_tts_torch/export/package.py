@@ -4,7 +4,10 @@ Counterpart of ``stylish_tts_tpu/export/package.py``. A package
 directory holds the JAX package's files, so either package reads what
 the other writes:
 
-  params.safetensors   inference-module weights in the flat flax layout
+  params.safetensors   the six inference modules' weights in the flat
+                       flax layout (``INFERENCE_MODULES``: the three that
+                       synthesis runs and the three style encoders, which
+                       ``voicepack`` runs)
   model_config.json    the full ModelConfig
   metadata.json        normalization, pitch log stats, duration stats
 
@@ -36,7 +39,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..convert.from_jax import module_from_jax, module_to_jax_flat
-from ..models import INFERENCE_MODELS, build_inference_models
+from ..models import INFERENCE_MODULES, build_inference_models
 from ..ops.duration import DurationProcessor
 from ..text import TextCleaner
 from ..trainer.normalization import NormalizationStats
@@ -81,17 +84,34 @@ def duration_stats_from_cache(cache: Mapping) -> Dict[str, float]:
     }
 
 
+def pitch_log2_stats(cache: Mapping | None) -> tuple:
+    """(log2 mean, log2 std floored at 1e-6) of a pitch cache's F0 values
+    above 10 Hz, in float32, as the JAX ``convert`` computes them: 7.0 and
+    1.0 without a cache or without such a value, and for an empty cache
+    the stats of one 128 Hz value."""
+    if cache is None:
+        return 7.0, 1.0
+    vals = []
+    for arr in cache.values():
+        arr = np.asarray(arr)
+        vals.append(arr[arr > 10])
+    allp = np.concatenate(vals) if vals else np.array([128.0])
+    if not allp.size:
+        return 7.0, 1.0
+    return float(np.log2(allp).mean()), float(max(np.log2(allp).std(), 1e-6))
+
+
 def export_checkpoint(
     models: Mapping[str, nn.Module], model_config: ModelConfig,
     normalization: NormalizationStats, out_dir: str,
     pitch_log2_mean: float = 0.0, pitch_log2_std: float = 1.0,
     duration_stats: Dict[str, float] | None = None,
 ) -> str:
-    """Write the three inference modules as a package directory in the JAX
-    layout (the style encoders are not ported yet and are left out)."""
+    """Write the six ``INFERENCE_MODULES`` of ``models`` (``build_models``'
+    registry names) as a package directory in the JAX layout."""
     os.makedirs(out_dir, exist_ok=True)
     flat = {}
-    for name in INFERENCE_MODELS:
+    for name in INFERENCE_MODULES:
         for key, value in module_to_jax_flat(models[name]).items():
             flat[f"{name}/{key}"] = value
     save_params_safetensors(osp.join(out_dir, "params.safetensors"), flat)

@@ -8,6 +8,9 @@ checkpoint, as ``build_model`` does (it sets ``generator.norm_mode``),
 and makes the style encoders' spectral norm off (pre-folded kernels).
 ``build_models`` builds the twelve modules of the three later stages by
 their registry names (``build_model`` less the aligner);
+``INFERENCE_MODELS`` are the three modules that synthesis builds, and
+``INFERENCE_MODULES`` the six that an inference package holds (the JAX
+``export/package.py`` tuple: those three and the three style encoders);
 ``STAGE_TRAIN_MODELS`` and ``STAGE_DISCRIMINATORS`` are the JAX step
 module's tables of what each stage trains.
 """
@@ -27,6 +30,14 @@ from .style_encoder import MelStyleEncoder, PitchStyleEncoder
 from .text_aligner import TextAligner
 
 INFERENCE_MODELS = ("duration_predictor", "pitch_energy_predictor", "speech_predictor")
+INFERENCE_MODULES = (
+    "speech_predictor",
+    "pitch_energy_predictor",
+    "duration_predictor",
+    "speech_style_encoder",
+    "pe_style_encoder",
+    "duration_style_encoder",
+)
 STAGE_TRAIN_MODELS = {
     "acoustic": ("speech_predictor", "speech_style_encoder"),
     "textual": ("pitch_energy_predictor", "pe_style_encoder"),

@@ -100,6 +100,26 @@ def load_checkpoint(
     return state, manifest, norm
 
 
+def load_stage_models(path: str, model_config: ModelConfig, device) -> tuple:
+    """The twelve modules of a later stage's checkpoint (``build_models``
+    names; an acoustic checkpoint of six loads, the rest at their init) on
+    ``device``, and its normalization stats: what ``convert`` and
+    ``voicepack`` read. Only the weights are read: the optimizers and the
+    generator streams stay in the file."""
+    from ..models import build_models
+
+    saved = torch.load(osp.join(path, STATE_FILE), map_location="cpu",
+                       weights_only=True)
+    if "models" not in saved:
+        raise ValueError("the checkpoint holds no module of the acoustic, textual "
+                         "or duration stage (an alignment checkpoint?)")
+    models = build_models(model_config)
+    for k, sd in saved["models"].items():
+        models[k].load_state_dict(sd)
+    norm = NormalizationStats.load(osp.join(path, "normalization.json"))
+    return {k: m.to(device) for k, m in models.items()}, norm
+
+
 def read_manifest(path: str) -> Manifest:
     with open(osp.join(path, "manifest.json"), "r", encoding="utf-8") as f:
         return Manifest.from_json(f.read())

@@ -22,7 +22,9 @@ The later stages (``train --stage acoustic|textual|duration``): one
 (``STAGE_TRAIN_MODELS``) at its plan's lr (cosine over the stage), with
 the frozen WavLM in the acoustic stage when ``loss_weight.slm`` > 0 (a
 local checkpoint, or the seeded random init under
-``model.slm.allow_random_fallback``) and the duration-class weights
+``model.slm.allow_random_fallback``; a run that starts at acoustic reads
+the slm cache ``dataset.slm_path`` where it exists, after checking that its
+WavLM fingerprint is that of the loaded weights) and the duration-class weights
 sqrt(train split's inverse class frequencies) in the duration stage;
 batches with pitch and alignments; metrics moved to the host once per
 ``log_interval``; validation with the eval samples' predicted audio written
@@ -54,6 +56,7 @@ from ..data.collate import collate_batch
 from ..data.dataset import FilePathDataset
 from ..data.loader import PrefetchLoader
 from ..data.sampler import BatchSizeTable, DynamicBatchSampler
+from ..dataprep.slm_cache import check_fingerprint
 from ..dsp.mel import MelSpectrogram
 from ..models import build_models, build_text_aligner
 from ..models.slm import load_wavlm, wavlm_loss
@@ -143,7 +146,10 @@ class Trainer:
     def data_path(self, name: str) -> str:
         return osp.join(self.config.dataset.path, name)
 
-    def build_dataset(self, list_name: str) -> FilePathDataset:
+    def build_dataset(self, list_name: str, with_slm: bool = False) -> FilePathDataset:
+        """The dataset of ``list_name`` with the pitch and alignment caches,
+        and the slm cache (``dataset.slm_path``, where the file exists) only
+        ``with_slm``: it is large and only the acoustic step reads it."""
         with open(self.data_path(list_name), encoding="utf-8") as f:
             lines = f.readlines()
         return FilePathDataset(
@@ -156,6 +162,7 @@ class Trainer:
             alignment_path=self.data_path(self.config.dataset.alignment_path),
             dur_to_class=lambda d: self.duration_processor.dur_to_class(
                 torch.as_tensor(d)).numpy(),
+            slm_path=self.data_path(self.config.dataset.slm_path) if with_slm else None,
             time_bin_quantize=self.config.dataset.time_bin_quantize,
         )
 
@@ -203,8 +210,10 @@ class Trainer:
         ``StageTrainState``)."""
         if stage not in STAGES:
             raise ValueError(f"unknown stage {stage!r} (stages: {STAGES})")
-        train_ds = self.build_dataset(self.config.dataset.train_data)
-        val_ds = self.build_dataset(self.config.dataset.val_data)
+        # the run enters acoustic only when it starts there
+        with_slm = stage == "acoustic" and self.config.loss_weight.slm > 0
+        train_ds = self.build_dataset(self.config.dataset.train_data, with_slm)
+        val_ds = self.build_dataset(self.config.dataset.val_data, with_slm)
         train_bins, _ = train_ds.time_bins()
         val_bins, _ = val_ds.time_bins()
 
@@ -248,6 +257,8 @@ class Trainer:
                         state.wavlm = load_wavlm(self.mc.slm.model,
                                                  self.mc.slm.allow_random_fallback,
                                                  self.device)
+                        if train_ds.slm:
+                            check_fingerprint(train_ds.slm, state.wavlm)
                     state = self.run_stage(stage, state, train_ds, val_ds, train_bins,
                                            val_bins, out_dir, skip_batches)
                     state.wavlm = None

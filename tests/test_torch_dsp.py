@@ -76,3 +76,20 @@ def test_mel_matches_jax(n_fft, win, hop):
     np.testing.assert_array_equal(
         tmel.mel_filterbank(80, n_fft, 24000), jmel.mel_filterbank(80, n_fft, 24000)
     )
+
+
+def test_bases_first_built_in_inference_mode_serve_autograd():
+    """A basis first built under ``torch.inference_mode`` (synthesis) is
+    cached as a normal tensor: a later STFT and iSTFT can be differentiated
+    (``speak`` and a training stage in one process)."""
+    tstft.forward_basis.cache_clear()
+    tstft.inverse_basis.cache_clear()
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 512)).astype(np.float32))
+    with torch.inference_mode():
+        real, imag = tstft.stft(x, 64, 16, 64)
+        tstft.istft(real, imag, 64, 16, 64)
+    x.requires_grad_(True)
+    real, imag = tstft.stft(x, 64, 16, 64)
+    wav = tstft.istft(real, imag, 64, 16, 64)
+    wav.square().sum().backward()
+    assert x.grad is not None and torch.isfinite(x.grad).all()

@@ -38,7 +38,7 @@ from stylish_tts_torch.export.package import (
     InferencePackage, duration_stats_from_cache, export_checkpoint, frame_bucket,
     text_bucket,
 )
-from stylish_tts_torch.models import build_inference_models
+from stylish_tts_torch.models import build_models
 from stylish_tts_torch.trainer.normalization import NormalizationStats
 from test_torch_synth_common import jax_params, port_config, randn, tiny_jax_config
 
@@ -67,8 +67,8 @@ def jax_package(tmp_path_factory):
             style, pitch, rng=k),
     }
     params = {name: jax_params(fn, seed=i) for i, (name, fn) in enumerate(inits.items())}
-    # the port reads no style encoder (not ported yet): the JAX writer gets
-    # zeros of their shapes
+    # synthesis runs no style encoder (``voicepack`` does): the JAX writer
+    # gets zeros of their shapes
     style_inits = {
         "speech_style_encoder": lambda k: models["speech_style_encoder"].init(k, style_mel),
         "pe_style_encoder": lambda k: models["pe_style_encoder"].init(
@@ -217,7 +217,7 @@ def test_port_package_read_by_jax(tmp_path):
     jmc = tiny_jax_config()
     torch.manual_seed(3)
     mc = port_config(jmc)
-    out = export_checkpoint(build_inference_models(mc), mc, NormalizationStats(),
+    out = export_checkpoint(build_models(mc), mc, NormalizationStats(),
                             str(tmp_path / "pkg"))
     jpkg = JaxPackage(out)
     pkg = InferencePackage(out, device="cpu")

@@ -18,7 +18,7 @@ from stylish_tts_tpu.tts import voicepack as jvoicepack
 from stylish_tts_torch.cli import tts_cli
 from stylish_tts_torch.data.wav import read_wav
 from stylish_tts_torch.export.package import export_checkpoint, frame_bucket
-from stylish_tts_torch.models import build_inference_models
+from stylish_tts_torch.models import build_models
 from stylish_tts_torch.textproc import embed
 from stylish_tts_torch.trainer.normalization import NormalizationStats
 from stylish_tts_torch.tts import loudness, voicepack
@@ -86,7 +86,7 @@ def package(tmp_path_factory):
     root = tmp_path_factory.mktemp("speak")
     torch.manual_seed(0)
     mc = port_config(tiny_jax_config())
-    export_checkpoint(build_inference_models(mc), mc, NormalizationStats(),
+    export_checkpoint(build_models(mc), mc, NormalizationStats(),
                       str(root / "pkg"))
     voicepack.save_static_voicepack(
         str(root / "vp.safetensors"), voicepack.build_static_pack(_styles(dim=mc.style_dim)))
