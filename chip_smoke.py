@@ -116,9 +116,25 @@ Phases (any failure exits non-zero):
    weights in the reference layout into a cache of its own (a batch of 8
    on the card against the CPU: salience 1e-4 absolute, voicing >= 99 %,
    F0 1e-3 relative; its time beside YIN's);
-9. print the synthesis, front-end, acoustic, later-stage and recipe summary
-   lines, the ``kernels`` JSON line (launch counts of the front end's
-   ``train-align``, the recipe's), then the device line last.
+9. the ringformer generator family (``generator.type: ringformer``) at the
+   full default widths, in phase 6's directory: synthesis from seeded
+   random weights (``speak`` through the CLI on the 8 lines, checked as in
+   phase 5; the card against the CPU on the 60-token line: durations, the
+   pcph prior with zero phase within 16 ulps of each harmonic's largest
+   phase, the waveform with one injected prior drawn on the CPU within 1e-3
+   of its peak; phase times, RTF at B = 1 and 8; the 510-token acoustic call
+   traced, ``chiprun_out/profile_ringformer_speak.json``); ``train --stage
+   acoustic`` through the CLI on phase 6's corpus (20 acoustic steps at B =
+   8, then 9 textual and 9 duration steps; every acoustic step with finite
+   ``mag`` and ``phase``, mel falling from the first to the last; CTC
+   launches 0); 6 bf16 steps at B = 16 timed and one traced
+   (``chiprun_out/profile_ringformer_step.json``, peak memory); one fp32
+   step with the parity switches card against CPU (as in phase 7);
+   ``convert`` of the duration stage's last checkpoint (every leaf bitwise),
+   ``voicepack`` and ``speak`` of the 8 lines from it (as in phase 8);
+10. print the synthesis, front-end, acoustic, later-stage, recipe and
+   ringformer summary lines, the ``kernels`` JSON line (launch counts of the
+   front end's ``train-align``, the recipe's), then the device line last.
 
 Tolerances: the kernels carry the trellis as float-float pairs and
 normalise gamma per frame (see csrc/ctc.cu), so they are held against the
@@ -758,9 +774,11 @@ SPEAK_GROUPS = (
 )
 
 
-def speak_group(name: str, in_dsp: bool) -> str:
-    if in_dsp:
+def speak_group(name: str, scope: str | None) -> str:
+    if scope == "dsp":
         return "DFT/iSTFT (framed-DFT matmuls, overlap-add, atan2/magnitude)"
+    if scope == "resblocks":
+        return "AdaIN/snake resblocks (all their kernels)"
     for group, needles in SPEAK_GROUPS:
         if any(n in name for n in needles):
             return group
@@ -784,24 +802,22 @@ def speak_lines(seed: int, counts):
     return lines
 
 
-def write_speak_inputs(torch, root: Path):
-    """A full-width package of seeded random weights, written by the port's
-    export in the JAX layout; a static voicepack of seeded style vectors;
-    the lines."""
+def write_speak_inputs(torch, root: Path, mc):
+    """A full-width package of seeded random weights (model config ``mc``),
+    written by the port's export in the JAX layout; a static voicepack of
+    seeded style vectors; the lines."""
     import numpy as np
 
-    from stylish_tts_torch.config import ModelConfig
     from stylish_tts_torch.export.package import export_checkpoint
     from stylish_tts_torch.models import INFERENCE_MODELS, build_models
     from stylish_tts_torch.trainer.normalization import NormalizationStats
     from stylish_tts_torch.tts.voicepack import build_static_pack, save_static_voicepack
 
     torch.manual_seed(0)
-    mc = ModelConfig()
     models = build_models(mc)
     with torch.no_grad():
         # a voice's F0 (~150 Hz) out of the random pitch head, so that the
-        # sine source runs its harmonics, as it does for a trained voice
+        # harmonic source runs its harmonics, as it does for a trained voice
         models["pitch_energy_predictor"].f0_proj.bias.fill_(F0_BIAS_HZ)
     n_params = {k: sum(p.numel() for p in models[k].parameters()) for k in INFERENCE_MODELS}
     export_checkpoint(models, mc, NormalizationStats(), str(root / "pkg"))
@@ -815,10 +831,11 @@ def write_speak_inputs(torch, root: Path):
     return lines, n_params
 
 
-def phase_speak(torch, root: Path):
-    """``speak`` through the port's CLI on ``cuda``; then the wav against
-    the package's own per-line synthesis: same lengths (total x hop), in
-    [-1, 1], finite, each piece at -25 LUFS."""
+def phase_speak(torch, root: Path, mc):
+    """``speak`` through the port's CLI on ``cuda`` from a package of model
+    config ``mc``; then the wav against the package's own per-line
+    synthesis: same lengths (total x hop), in [-1, 1], finite, each piece at
+    -25 LUFS."""
     import numpy as np
 
     from stylish_tts_torch.cli import tts_cli
@@ -827,7 +844,7 @@ def phase_speak(torch, root: Path):
     from stylish_tts_torch.tts.loudness import integrated_loudness
     from stylish_tts_torch.tts.voicepack import load_voicepack, lookup_static_style
 
-    lines, n_params = write_speak_inputs(torch, root)
+    lines, n_params = write_speak_inputs(torch, root, mc)
     wav_path = root / "speech.wav"
     t0 = time.time()
     tts_cli.main(["speak", "--model", str(root / "pkg"),
@@ -1032,11 +1049,13 @@ def phase_speak_profile(torch, pkg, pack, line):
     device ms by kernel group, launches, busy share (device ms over the
     call's untraced time; the profiler slows the host). The port's DSP entry
     points are wrapped in profiler ranges for the trace only, so that the
-    framed-DFT matmuls count as DFT/iSTFT and not as GEMMs."""
+    framed-DFT matmuls count as DFT/iSTFT and not as GEMMs; so are the
+    AdaIN/snake resblocks (``AdaptiveGeneratorBlock``), a group of their own."""
     from torch.autograd import DeviceType
 
     from stylish_tts_torch.dsp import stft as stft_lib
     from stylish_tts_torch.export.package import frame_bucket
+    from stylish_tts_torch.models.common import AdaptiveGeneratorBlock
 
     texts, lengths, (sp, pe, du) = line_inputs(torch, pkg, pack, line, "cuda")
     durations = pkg.durations(texts, lengths, du)
@@ -1044,44 +1063,46 @@ def phase_speak_profile(torch, pkg, pack, line):
     call = lambda: pkg.acoustic(texts, lengths, durations, pe, sp, frames)  # noqa: E731
     call_ms = median_ms(torch, call, n=N_PHASE_TIMED, warmup=1, sleep=False)
 
-    originals = {name: getattr(stft_lib, name)
-                 for name in ("stft_magnitude_unit_phase", "istft")}
+    originals = [(stft_lib, name, "dsp", getattr(stft_lib, name))
+                 for name in ("stft_magnitude_unit_phase", "istft")]
+    originals.append((AdaptiveGeneratorBlock, "forward", "resblocks",
+                      AdaptiveGeneratorBlock.forward))
 
-    def ranged(name, fn):
+    def ranged(scope, fn):
         def wrapper(*args, **kwargs):
-            with torch.profiler.record_function("dsp." + name):
+            with torch.profiler.record_function("scope." + scope):
                 return fn(*args, **kwargs)
         return wrapper
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     try:
-        for name, fn in originals.items():
-            setattr(stft_lib, name, ranged(name, fn))
+        for obj, name, scope, fn in originals:
+            setattr(obj, name, ranged(scope, fn))
         with torch.profiler.profile(activities=activities) as prof:
             t0 = time.perf_counter()
             call()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        for name, fn in originals.items():
-            setattr(stft_lib, name, fn)
+        for obj, name, _, fn in originals:
+            setattr(obj, name, fn)
 
-    def in_dsp(evt):
+    def scope_of(evt):
         while evt is not None:
-            if evt.name.startswith("dsp."):
-                return True
+            if evt.name.startswith("scope."):
+                return evt.name[len("scope."):]
             evt = evt.cpu_parent
-        return False
+        return None
 
     groups, kernels = {}, {}
     launches = 0
     for evt in prof.events():
         if evt.device_type != DeviceType.CPU:
             continue
-        dsp = in_dsp(evt)
+        scope = scope_of(evt)
         for k in evt.kernels:
             ms = k.duration / 1e3
-            g = groups.setdefault(speak_group(k.name, dsp), {"ms": 0.0, "launches": 0})
+            g = groups.setdefault(speak_group(k.name, scope), {"ms": 0.0, "launches": 0})
             g["ms"] += ms
             g["launches"] += 1
             row = kernels.setdefault(k.name, {"ms": 0.0, "launches": 0})
@@ -1110,9 +1131,11 @@ def phase_speak_profile(torch, pkg, pack, line):
 
 
 def phase_synthesis(torch, card: str):
+    from stylish_tts_torch.config import ModelConfig
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_speak_") as tmp:
         root = Path(tmp)
-        pkg, pack, lines, speak = phase_speak(torch, root)
+        pkg, pack, lines, speak = phase_speak(torch, root, ModelConfig())
         check = phase_card_vs_cpu(torch, pkg, pack, root, lines[SHORT_LINE])
     times = phase_speak_times(torch, pkg, pack, lines)
     profile = phase_speak_profile(torch, pkg, pack, lines[-1])
@@ -1707,11 +1730,13 @@ def acoustic_group(name: str, scope: str | None) -> str:
     return base
 
 
-def acoustic_configs(data: Path, work: Path):
+def acoustic_configs(data: Path, work: Path, generator: str = "freegan",
+                     acoustic_epochs: int = ACOUSTIC_EPOCHS,
+                     save_interval: int = SAVE_INTERVAL):
     """The YAMLs of ``train``: every field of ``training_plan.<stage>``
     written out for the three stages (a partial plan takes the class
     defaults); bf16; the slm term at its default 0.2 with the seeded random
-    WavLM."""
+    WavLM; ``generator.type`` as given."""
     import yaml
 
     from stylish_tts_torch.config import ModelConfig
@@ -1720,8 +1745,8 @@ def acoustic_configs(data: Path, work: Path):
     cfg.write_text(yaml.safe_dump({
         "dataset": {"path": str(data)},
         "training": {"log_interval": 5, "val_interval": VAL_INTERVAL,
-                     "save_interval": SAVE_INTERVAL, "mixed_precision": "bf16"},
-        "training_plan": {"acoustic": {"epochs": ACOUSTIC_EPOCHS,
+                     "save_interval": save_interval, "mixed_precision": "bf16"},
+        "training_plan": {"acoustic": {"epochs": acoustic_epochs,
                                        "probe_batch_max": ACOUSTIC_PROBE_BATCH_MAX,
                                        "lr": 1e-4},
                           **LATER_PLANS},
@@ -1730,6 +1755,7 @@ def acoustic_configs(data: Path, work: Path):
     }), encoding="utf-8")
     mc = ModelConfig().model_dump()
     mc["slm"]["allow_random_fallback"] = True
+    mc["generator"]["type"] = generator
     model_cfg = work / "acoustic_model.yml"
     model_cfg.write_text(yaml.safe_dump(mc), encoding="utf-8")
     return cfg, model_cfg
@@ -1972,10 +1998,11 @@ def stage_state(torch, mc, device, stage="acoustic", seed=0):
     return create_stage_train_state(build_models(mc), device, stage, seed=seed)
 
 
-def acoustic_card_vs_cpu(torch, data):
+def acoustic_card_vs_cpu(torch, data, mc=None):
     """One full-width fp32 step (parity switches, an injected broadband
     excitation, MRD 1, slm on) from the same weights on the card and on the
-    CPU: every metric, and every module's updated weights."""
+    CPU: every metric, and every module's updated weights. ``mc``: the
+    default ``ModelConfig()`` unless given."""
     import numpy as np
 
     from stylish_tts_torch.config import Config, ModelConfig
@@ -1983,7 +2010,7 @@ def acoustic_card_vs_cpu(torch, data):
     from stylish_tts_torch.trainer.normalization import NormalizationStats
     from stylish_tts_torch.trainer.steps import StepContext, batch_to_device, make_acoustic_step
 
-    mc = ModelConfig()
+    mc = mc or ModelConfig()
     batch = acoustic_batch(torch, data, 2, seconds=1.0)
     gen = torch.Generator().manual_seed(3)
     prior = torch.tanh(0.3 * torch.randn(batch.audio_gt.shape, generator=gen))
@@ -2014,10 +2041,11 @@ def acoustic_card_vs_cpu(torch, data):
     if (max(metric_rel.values()) > CARD_CPU_METRIC_RTOL
             or max(ratios.values()) > CARD_CPU_WEIGHT_RTOL or worst_abs > CARD_CPU_MAX_ABS
             or not all(np.isfinite(list(m_card.values())))):
-        fail(f"acoustic step, card vs CPU: metrics rel {metric_rel} (<= "
+        fail(f"acoustic step ({mc.generator.type}), card vs CPU: metrics rel {metric_rel} (<= "
              f"{CARD_CPU_METRIC_RTOL}); weights: error / move {ratios} (<= "
              f"{CARD_CPU_WEIGHT_RTOL}), max abs {worst_abs:.2e} (<= {CARD_CPU_MAX_ABS})")
-    log(f"acoustic step card vs CPU (fp32, B=2, {batch.audio_gt.shape[1]} samples): "
+    log(f"acoustic step ({mc.generator.type}) card vs CPU (fp32, B=2, "
+        f"{batch.audio_gt.shape[1]} samples): "
         f"metrics max rel {max(metric_rel.values()):.2e} "
         f"({max(metric_rel, key=metric_rel.get)}), weights error / move "
         f"{ {k: round(v, 5) for k, v in ratios.items()} }, max abs {worst_abs:.2e}; "
@@ -2027,12 +2055,15 @@ def acoustic_card_vs_cpu(torch, data):
             "samples": int(batch.audio_gt.shape[1])}
 
 
-def acoustic_moves_and_times(torch, data, card):
-    """20 bf16 steps on one fixed corpus batch of 16 from seeded weights
-    (metrics finite, lr multipliers in [0.01, 4], mel falling by the stated
-    margin), each timed; then the step's device time by kernel group under
-    ``torch.profiler``, its launches, busy share and peak memory, and the
-    WavLM's part (its loss forward and backward alone at the step's shapes)."""
+def acoustic_moves_and_times(torch, data, card, mc=None, n_steps=MOVE_STEPS,
+                             mel_drop=MEL_DROP, name="acoustic"):
+    """``n_steps`` bf16 steps on one fixed corpus batch of 16 from seeded
+    weights (``mc``: the default ``ModelConfig()`` unless given; metrics
+    finite, lr multipliers in [0.01, 4], mel falling by the ``mel_drop``
+    margin where one is given), each timed; then the step's device time by
+    kernel group under ``torch.profiler`` (``chiprun_out/profile_<name>_step.json``),
+    its launches, busy share and peak memory, and the WavLM's part (its loss
+    forward and backward alone at the step's shapes)."""
     import numpy as np
     from torch.autograd import DeviceType
 
@@ -2044,7 +2075,7 @@ def acoustic_moves_and_times(torch, data, card):
     from stylish_tts_torch.trainer.normalization import NormalizationStats
     from stylish_tts_torch.trainer.steps import StepContext, batch_to_device, make_acoustic_step
 
-    mc = ModelConfig()
+    mc = mc or ModelConfig()
     batch = batch_to_device(acoustic_batch(torch, data, ACOUSTIC_B), "cuda")
     state = stage_state(torch, mc, "cuda")
     state.wavlm = random_wavlm(0).cuda().eval().requires_grad_(False)
@@ -2054,7 +2085,7 @@ def acoustic_moves_and_times(torch, data, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     metrics, step_ms = [], []
-    for _ in range(MOVE_STEPS):
+    for _ in range(n_steps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         m = step(state, batch)
@@ -2069,8 +2100,8 @@ def acoustic_moves_and_times(torch, data, card):
                                                               for v in mults):
             fail(f"acoustic moves: metrics {m}")
     mel0, mel1 = metrics[0]["mel"], metrics[-1]["mel"]
-    if not mel1 < MEL_DROP * mel0:
-        fail(f"acoustic moves: mel {mel0:.4f} -> {mel1:.4f}, not below {MEL_DROP} x the first")
+    if mel_drop is not None and not mel1 < mel_drop * mel0:
+        fail(f"acoustic moves: mel {mel0:.4f} -> {mel1:.4f}, not below {mel_drop} x the first")
     median_step = statistics.median(step_ms[2:])
 
     # WavLM alone: the target's forward and the prediction's forward and
@@ -2152,14 +2183,14 @@ def acoustic_moves_and_times(torch, data, card):
                "wavlm_share": wavlm_ms / median_step, "groups": groups,
                "top_kernels": [{"name": n, **v} for n, v in top]}
     OUT.mkdir(exist_ok=True)
-    (OUT / "profile_acoustic_step.json").write_text(json.dumps(profile, indent=1))
-    for name, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms"]):
-        log(f"acoustic step device time: {g['ms']:.3f} ms x{g['launches']} {name}")
-    log(f"acoustic step B={ACOUSTIC_B} F={profile['frames']} bf16: {median_step:.2f} ms "
-        f"(median of {MOVE_STEPS - 2}), device {device_ms:.2f} ms, busy share "
+    (OUT / f"profile_{name}_step.json").write_text(json.dumps(profile, indent=1))
+    for group, g in sorted(groups.items(), key=lambda kv: -kv[1]["ms"]):
+        log(f"{name} step device time: {g['ms']:.3f} ms x{g['launches']} {group}")
+    log(f"{name} step B={ACOUSTIC_B} F={profile['frames']} bf16: {median_step:.2f} ms "
+        f"(median of {n_steps - 2}), device {device_ms:.2f} ms, busy share "
         f"{device_ms / median_step:.3f}, {launches} launches, peak "
         f"{peak / 2**30:.2f} GiB; WavLM {wavlm_ms:.2f} ms ({wavlm_ms / median_step:.3f}); "
-        f"mel {mel0:.4f} -> {mel1:.4f} over {MOVE_STEPS} steps")
+        f"mel {mel0:.4f} -> {mel1:.4f} over {n_steps} steps")
     return {"metrics": metrics, "step_ms": step_ms,
             **{k: v for k, v in profile.items() if k != "top_kernels"}}
 
@@ -2450,9 +2481,10 @@ def first_clips(data: Path, n: int, **caches):
     return ds
 
 
-def recipe_convert(torch, work, ckpt):
-    """``convert``: the six modules, every leaf the checkpoint's bitwise,
-    finite pitch stats, the duration stats' keys."""
+def recipe_convert(torch, work, ckpt, mc=None):
+    """``convert``: the six modules, every leaf the checkpoint's bitwise
+    (``mc``: the checkpoint's model config, the default ``ModelConfig()``
+    unless given), finite pitch stats, the duration stats' keys."""
     import numpy as np
     from safetensors.numpy import load_file
 
@@ -2469,7 +2501,7 @@ def recipe_convert(torch, work, ckpt):
     if modules != sorted(INFERENCE_MODULES):
         fail(f"convert wrote the modules {modules}, not {sorted(INFERENCE_MODULES)}")
     saved = saved_models(torch, ckpt)
-    skeleton = build_models(ModelConfig())
+    skeleton = build_models(mc or ModelConfig())
     expected = {f"{name}/{k}": v for name in INFERENCE_MODULES
                 for k, v in module_to_jax_flat(skeleton[name], saved[name]).items()}
     differ = [k for k, v in expected.items() if not np.array_equal(flat.get(k), v)]
@@ -2789,6 +2821,167 @@ def phase_recipe(torch, work: Path):
     return report
 
 
+# ---------------------------------------------------------------- phase 9
+
+RINGFORMER_ACOUSTIC_EPOCHS = 1  # 20 acoustic steps at B = 8 on phase 6's corpus
+RINGFORMER_SAVE_INTERVAL = 10  # checkpoints: phase 7 holds their pruning and resumes
+RINGFORMER_TIMED_STEPS = 6  # at B = 16: 2 warm-up steps, the median of 4
+# the pcph prior, card against CPU: within PCPH_ULPS ulps of each harmonic's
+# largest phase, as the sine source. Its phase is a float32 cumulative sum
+# over frames: the card's parallel scan and the CPU's sequential sum round
+# differently, by a few ulps of the largest frame-start cycle count (4.50
+# at the 60-token line, 400 frames, on an H100 80GB HBM3); JAX against the
+# port on the CPU, both sequential, holds 4 (tests/test_torch_ringformer.py)
+PCPH_ULPS = 16
+# broadband noise on the injected prior of the card-vs-CPU waveform, so that
+# every bin of the head's STFT carries energy (a harmonic prior's empty bins
+# make the atan2 phase round-off)
+PRIOR_NOISE = 0.03
+
+
+def ringformer_config():
+    from stylish_tts_torch.config import ModelConfig
+
+    mc = ModelConfig()
+    mc.generator.type = "ringformer"
+    return mc
+
+
+def ringformer_card_vs_cpu(torch, pkg, pack, root: Path, line: str):
+    """The ringformer package on the CPU and on the card, one short line: the
+    durations; the pcph prior with zero initial phase, its error in ulps of
+    each harmonic's largest phase; the waveform with one injected prior (the
+    pcph drawn on the CPU from the row's generator, plus broadband noise)
+    within 1e-3 of the CPU waveform's peak."""
+    import math
+
+    import numpy as np
+
+    from stylish_tts_torch.export.package import InferencePackage, frame_bucket
+    from stylish_tts_torch.models.ringformer import MAX_HARMONICS, generate_pcph
+
+    cpu = InferencePackage(str(root / "pkg"), device="cpu")
+    hop, sr = cpu.models["speech_predictor"].generator.prior_hop, cpu.mc.sample_rate
+    c_texts, c_lengths, (c_sp, c_pe, c_du) = line_inputs(torch, cpu, pack, line, "cpu")
+    with torch.no_grad():
+        d_cpu = cpu.durations(c_texts, c_lengths, c_du)
+        d_gpu = pkg.durations(c_texts.cuda(), c_lengths.cuda(), c_du.cuda()).cpu()
+        dur_err = float((d_cpu - d_gpu).abs().max())
+        t_cpu = int(round(float(d_cpu.numpy().sum())))
+        t_gpu = int(round(float(d_gpu.numpy().sum())))
+        if dur_err > DURATION_ATOL or frame_bucket(t_cpu) != frame_bucket(t_gpu):
+            fail(f"ringformer durations on the card vs the CPU: max err {dur_err:.3e}, "
+                 f"frame buckets {frame_bucket(t_gpu)} / {frame_bucket(t_cpu)}")
+        frames = frame_bucket(t_cpu)
+        alignment = cpu.duration_processor.duration_to_alignment(d_cpu, frames)
+        pitch, _ = cpu.models["pitch_energy_predictor"](c_texts, c_lengths, alignment, c_pe)
+        voiced = (pitch > 20.0).to(torch.float32)
+
+        p_cpu = generate_pcph(pitch, voiced, hop, sr, None)
+        p_gpu = generate_pcph(pitch.cuda(), voiced.cuda(), hop, sr, None).cpu()
+        c_max = float(torch.cumsum(pitch.double() / sr, dim=1).max())
+        f_max = float((pitch * voiced).max())
+        n_harm = max(1, min(MAX_HARMONICS, int(sr / 2 // max(f_max, 1.0))))
+        ulps = sum(float(np.spacing(np.float32(2 * math.pi * h * hop * c_max)))
+                   for h in range(1, MAX_HARMONICS + 1))
+        pcph_unit = 0.1 * math.sqrt(2.0 / n_harm) * ulps
+        pcph_err = float((p_cpu - p_gpu).abs().max())
+
+        noise = torch.randn(p_cpu.shape, generator=torch.Generator().manual_seed(4))
+        prior = generate_pcph(pitch, voiced, hop, sr, cpu._source_generators(1)) \
+            + PRIOR_NOISE * noise
+        w_cpu = cpu.acoustic(c_texts, c_lengths, d_cpu, c_pe, c_sp, frames, prior=prior)
+        w_gpu = pkg.acoustic(c_texts.cuda(), c_lengths.cuda(), d_cpu.cuda(), c_pe.cuda(),
+                             c_sp.cuda(), frames, prior=prior.cuda()).cpu()
+        wave_err = float((w_cpu - w_gpu).abs().max())
+        wave_peak = float(w_cpu.abs().max())
+        wave_rms = float(w_cpu.square().mean().sqrt())
+        wave_tol = WAVE_RTOL * wave_peak
+    if not wave_err <= wave_tol:
+        fail(f"ringformer waveform on the card vs the CPU (same prior): max err "
+             f"{wave_err:.3e}, tolerance {wave_tol:.3e} ({WAVE_RTOL} x peak {wave_peak:.4g})")
+    if not pcph_err <= PCPH_ULPS * pcph_unit:
+        fail(f"pcph on the card vs the CPU: max err {pcph_err:.3e} = "
+             f"{pcph_err / pcph_unit:.2f} ulps of the phase (<= {PCPH_ULPS})")
+    out = {"tokens": int(c_lengths[0]), "frames": frames, "duration_max_abs_err": dur_err,
+           "wave_max_abs_err": wave_err, "wave_tol": wave_tol, "wave_peak": wave_peak,
+           "wave_rms": wave_rms, "pcph_max_abs_err": pcph_err,
+           "pcph_err_ulps": pcph_err / pcph_unit, "pcph_ulps_limit": PCPH_ULPS,
+           "pcph_max_cycles": c_max * hop * MAX_HARMONICS}
+    log(f"ringformer card vs CPU, {out['tokens']} tokens, {frames} frames: durations "
+        f"{dur_err:.2e}, wave {wave_err:.2e} (tol {wave_tol:.2e} = {WAVE_RTOL} x peak "
+        f"{wave_peak:.4g}; RMS {wave_rms:.4g}), pcph {pcph_err:.2e} = "
+        f"{pcph_err / pcph_unit:.3f} ulps of the phase (largest {out['pcph_max_cycles']:.4g} "
+        f"cycles)")
+    return out
+
+
+def phase_ringformer(torch, work: Path, card: str):
+    """The ringformer generator family (``generator.type: ringformer``) at
+    the full default widths on ``cuda``: synthesis from seeded random
+    weights (``speak`` on the 8 lines, the card against the CPU, phase times,
+    RTF at B = 1 and 8, a profile of the 510-token call); ``train --stage
+    acoustic`` through the CLI on phase 6's corpus (20 acoustic steps at B
+    = 8, then 9 textual and 9 duration steps; MagPhase terms finite, mel
+    falling); the B = 16 step timed and traced; one fp32 step card against
+    CPU; ``convert`` of the duration stage's last checkpoint, ``voicepack``
+    and ``speak`` of the 8 lines from it."""
+    t0 = time.time()
+    mc = ringformer_config()
+    root = work / "ringformer"
+    (root / "speak").mkdir(parents=True)
+    pkg, pack, lines, speak = phase_speak(torch, root / "speak", mc)
+    check = ringformer_card_vs_cpu(torch, pkg, pack, root / "speak", lines[SHORT_LINE])
+    times = phase_speak_times(torch, pkg, pack, lines)
+    profile = phase_speak_profile(torch, pkg, pack, lines[-1])
+    profile["card"] = card
+    OUT.mkdir(exist_ok=True)
+    (OUT / "profile_ringformer_speak.json").write_text(json.dumps(profile, indent=1))
+    del pkg
+    synthesis_s = time.time() - t0
+
+    data = work / "data"
+    cfg, model_cfg = acoustic_configs(data, root, "ringformer", RINGFORMER_ACOUSTIC_EPOCHS,
+                                      RINGFORMER_SAVE_INTERVAL)
+    out = root / "out"
+    trainer, train_s, ctc_launches = stage_train(torch, cfg, model_cfg, out, "acoustic")
+    spans = stage_runs(trainer, STAGES)
+    at, n = spans["acoustic"]
+    rows = trainer.step_metrics[at: at + n]
+    if not all({"mag", "phase"} <= set(m) for m in rows):
+        fail(f"ringformer acoustic steps without the MagPhase terms: {rows[0]}")
+    if not rows[-1]["mel"] < rows[0]["mel"]:
+        fail(f"ringformer acoustic mel {rows[0]['mel']:.4f} -> {rows[-1]['mel']:.4f}: "
+             "not falling")
+    steps = {stage: {"steps": trainer.stage_manifests[stage].current_total_step,
+                     "B": len(trainer.batches[spans[stage][0]])} for stage in STAGES}
+    log(f"ringformer train: {steps} in {train_s:.1f} s; acoustic mel {rows[0]['mel']:.4f} "
+        f"-> {rows[-1]['mel']:.4f}, mag {rows[0]['mag']:.4f} -> {rows[-1]['mag']:.4f}, "
+        f"phase {rows[0]['phase']:.4f} -> {rows[-1]['phase']:.4f}; CTC launches "
+        f"{ctc_launches}")
+    moves = acoustic_moves_and_times(torch, data, card, mc, n_steps=RINGFORMER_TIMED_STEPS,
+                                     mel_drop=None, name="ringformer")
+    step_check = acoustic_card_vs_cpu(torch, data, mc)
+
+    ckpt = out / "duration" / checkpoint_dirs(out / "duration")[-1]
+    pkg_dir, convert = recipe_convert(torch, root, ckpt, mc)
+    voicepack = root / "voicepack.safetensors"
+    _, voicepack_s = cli(torch, "voicepack", "--config", str(cfg), "--model-config",
+                         str(model_cfg), "--checkpoint", str(ckpt), "--out", str(voicepack))
+    spoken = recipe_speak(torch, root, pkg_dir, voicepack)
+    wall = time.time() - t0
+    log(f"ringformer phase: {wall:.1f} s (synthesis {synthesis_s:.1f} s, train "
+        f"{train_s:.1f} s)")
+    return {"wall_s": wall, "synthesis_s": synthesis_s, "speak": speak,
+            "card_vs_cpu": check, "times": times,
+            "profile": {k: v for k, v in profile.items() if k != "top_kernels"},
+            "train_s": train_s, "steps": steps, "ctc_launches": ctc_launches,
+            "acoustic_metrics": rows, "moves": {k: v for k, v in moves.items()
+                                                if k != "metrics"},
+            "step_card_vs_cpu": step_check, "convert": convert,
+            "voicepack_s": voicepack_s, "trained_speak": spoken}
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -2834,6 +3027,7 @@ def main() -> int:
         front = phase_front_end(torch, Path(tmp), card)
         acoustic = phase_stages(torch, Path(tmp), card)
         recipe = phase_recipe(torch, Path(tmp))
+        ringformer = phase_ringformer(torch, Path(tmp), card)
     launches = front["train_align"]["launches"]
     if not all(launches.values()):
         fail(f"a CTC kernel of the front end's train-align never launched: {launches}")
@@ -2858,7 +3052,7 @@ def main() -> int:
               "step_ms": step_ms, "step_profile": profile, "checks": checks,
               "timings": timings, "frame_fit": fit, "kernels": kernels,
               "front_end": front, "synthesis": synthesis, "acoustic": acoustic,
-              "recipe": recipe, "wall_s": time.time() - t_start}
+              "recipe": recipe, "ringformer": ringformer, "wall_s": time.time() - t_start}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     log(f"total {time.time() - t_start:.1f} s; details in {OUT / 'chip_smoke.json'}")
@@ -2953,6 +3147,34 @@ def main() -> int:
         "rmvpe_salience_max_abs_err": rm["salience_max_abs_err"],
         "rmvpe_voicing_agree": rm["voicing_agree"],
         "rmvpe_f0_max_rel_err": rm["f0_max_rel_err"]}}), flush=True)
+    rf, rm, rt = ringformer, ringformer["moves"], ringformer["times"]
+    rp, rc = ringformer["profile"], ringformer["card_vs_cpu"]
+    print(json.dumps({"ringformer": {
+        "card": card, "wall_s": rf["wall_s"], "rtf_b1": rt["rtf_b1"],
+        "batch8_rtf": rt["batch8_rtf"],
+        "phases_ms": {str(b["text_bucket"]): [b["duration_ms"], b["acoustic_ms"]]
+                      for b in rt["per_bucket"]},
+        "profile_frames": rp["frame_bucket"], "profile_device_ms": rp["device_ms"],
+        "profile_busy_share": rp["busy_share"], "profile_launches": rp["launches"],
+        "profile_groups_ms": {g: v["ms"] for g, v in rp["groups"].items()},
+        "card_vs_cpu_wave_max_abs_err": rc["wave_max_abs_err"],
+        "card_vs_cpu_wave_tol": rc["wave_tol"], "pcph_err_ulps": rc["pcph_err_ulps"],
+        "train_s": rf["train_s"], "steps": {k: [v["steps"], v["B"]] for k, v in rf["steps"].items()},
+        "ctc_launches": rf["ctc_launches"],
+        "mel_first_last": [rf["acoustic_metrics"][0]["mel"], rf["acoustic_metrics"][-1]["mel"]],
+        "mag_first_last": [rf["acoustic_metrics"][0]["mag"], rf["acoustic_metrics"][-1]["mag"]],
+        "phase_first_last": [rf["acoustic_metrics"][0]["phase"],
+                             rf["acoustic_metrics"][-1]["phase"]],
+        "step_ms_b16": rm["step_ms_median"], "device_ms": rm["device_ms"],
+        "busy_share": rm["busy_share"], "launches": rm["launches"],
+        "peak_memory_gib": rm["peak_memory_bytes"] / 2**30, "wavlm_share": rm["wavlm_share"],
+        "groups_ms": {g: v["ms"] for g, v in rm["groups"].items()},
+        "card_vs_cpu_metric_max_rel_err": max(rf["step_card_vs_cpu"]["metric_rel_err"].values()),
+        "card_vs_cpu_weight_err_over_move": max(
+            rf["step_card_vs_cpu"]["weight_err_over_move"].values()),
+        "convert_leaves_bitwise": rf["convert"]["leaves"],
+        "trained_rtf_b1": rf["trained_speak"]["rtf_b1"],
+        "trained_speak_audio_s": rf["trained_speak"]["audio_s"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,15 +23,28 @@ flax's ``x_0``, ``x_1``, ..., and the auto-named flax children (``Conv_0``,
 ``LayerNorm_0``, ``StyleFiLM_0``, ``GRN_0``, ``Dense_i``) come from each
 port class's ``FLAX_WRAP`` / ``FLAX_NAMES``; the leaf's kind follows from
 the module that owns it. Any leaf left unmapped on either side raises.
+
+A FreeGAN tree of a ``generator.scan_stacks`` model rolls each of the
+two ConvNeXt stacks into one ``<stack>_scan/block`` subtree whose leaves
+carry a leading layer axis (``amp_convnext_scan``, ``phase_convnext_scan``);
+the port's modules stay unrolled (``amp_convnext_i``, ``phase_convnext_i``).
+``module_from_jax`` unstacks such a tree, and ``module_to_jax_flat`` with
+``scan_stacks=True`` writes the stacked layout back.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+SCAN_STACKS = ("amp_convnext", "phase_convnext")
+_SCANNED = re.compile(rf"(^|/)({'|'.join(SCAN_STACKS)})_scan/block/")
+_UNROLLED = re.compile(rf"(^|/)({'|'.join(SCAN_STACKS)})_(\d+)/")
+
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     """Nested dict -> flat ``/``-keyed dict (flat input passes through)."""
@@ -43,6 +56,37 @@ def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
         else:
             flat[key] = np.asarray(v)
     return flat
+
+
+def unstack_scans(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """``<stack>_scan/block/<leaf>`` (n, ...) -> ``<stack>_i/<leaf>`` for
+    i < n; other keys pass through."""
+    out: Dict[str, np.ndarray] = {}
+    for key, value in flat.items():
+        m = _SCANNED.search(key)
+        if m is None:
+            out[key] = value
+            continue
+        for i in range(value.shape[0]):
+            out[key[:m.start()] + f"{m.group(1)}{m.group(2)}_{i}/" + key[m.end():]] = value[i]
+    return out
+
+
+def restack_scans(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The inverse of ``unstack_scans``: ``<stack>_i/<leaf>`` -> one
+    ``<stack>_scan/block/<leaf>`` stacked over i."""
+    out: Dict[str, np.ndarray] = {}
+    layers: Dict[str, Dict[int, np.ndarray]] = {}
+    for key, value in flat.items():
+        m = _UNROLLED.search(key)
+        if m is None:
+            out[key] = value
+            continue
+        scan_key = key[:m.start()] + f"{m.group(1)}{m.group(2)}_scan/block/" + key[m.end():]
+        layers.setdefault(scan_key, {})[int(m.group(3))] = value
+    for scan_key, by_index in layers.items():
+        out[scan_key] = np.stack([by_index[i] for i in sorted(by_index)])
+    return out
 
 
 def _strip_params(params: Mapping) -> Dict[str, np.ndarray]:
@@ -128,8 +172,9 @@ def _relayout(x: np.ndarray, kind: str, to_torch: bool) -> np.ndarray:
 
 
 def module_from_jax(module: nn.Module, params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax variables of ``module``'s JAX counterpart -> its ``state_dict``."""
-    flat = _strip_params(params)
+    """flax variables of ``module``'s JAX counterpart (unrolled or with
+    scanned stacks) -> its ``state_dict``."""
+    flat = unstack_scans(_strip_params(params))
     sd: Dict[str, torch.Tensor] = {}
     missing = []
     for key, (path, kind) in flax_layout(module).items():
@@ -144,10 +189,11 @@ def module_from_jax(module: nn.Module, params: Mapping) -> Dict[str, torch.Tenso
 
 
 def module_to_jax_flat(module: nn.Module,
-                       state_dict: Mapping[str, torch.Tensor] | None = None
-                       ) -> Dict[str, np.ndarray]:
+                       state_dict: Mapping[str, torch.Tensor] | None = None,
+                       scan_stacks: bool = False) -> Dict[str, np.ndarray]:
     """``module``'s parameters (or ``state_dict``, laid out as ``module``'s)
-    -> the flat ``params/...`` layout of its JAX counterpart."""
+    -> the flat ``params/...`` layout of its JAX counterpart, with the
+    ConvNeXt stacks rolled as a ``scan_stacks`` model's when asked."""
     sd = dict(module.state_dict() if state_dict is None else state_dict)
     flat = {}
     for key, (path, kind) in flax_layout(module).items():
@@ -155,4 +201,4 @@ def module_to_jax_flat(module: nn.Module,
                                            to_torch=False)
     if sd:
         raise KeyError(f"{type(module).__name__}: unmapped weights {sorted(sd)}")
-    return flat
+    return restack_scans(flat) if scan_stacks else flat

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import resolve_device
+
 F0_MIN = 50.0
 F0_MAX = 600.0
 YIN_THRESHOLD = 0.15
@@ -106,11 +108,13 @@ def yin_pitch(audio: torch.Tensor, *, hop: int, frames: int,
 
 def extract_pitch_for_dataset(
     dataset, hop_length: int, sample_rate: int, batch_size: int = 8,
-    device="cpu", extractor=None,
+    device="cuda", extractor=None,
 ) -> Dict[str, np.ndarray]:
     """Whole-dataset pitch cache {wav filename: (frames,) F0 Hz}, batched
-    per duration bin: YIN on ``device``, or ``extractor`` (an
-    ``RMVPEPitchExtractor``, ``dataprep/rmvpe.py``) where given."""
+    per duration bin: YIN on ``device`` (``cuda`` unless the caller asks
+    for ``cpu``), or ``extractor`` (an ``RMVPEPitchExtractor``,
+    ``dataprep/rmvpe.py``) where given."""
+    device = resolve_device(device)
     bins, _ = dataset.time_bins()
     cache: Dict[str, np.ndarray] = {}
     for _bin, idxs in sorted(bins.items()):

@@ -112,7 +112,8 @@ def export_checkpoint(
     os.makedirs(out_dir, exist_ok=True)
     flat = {}
     for name in INFERENCE_MODULES:
-        for key, value in module_to_jax_flat(models[name]).items():
+        for key, value in module_to_jax_flat(
+                models[name], scan_stacks=model_config.generator.scan_stacks).items():
             flat[f"{name}/{key}"] = value
     save_params_safetensors(osp.join(out_dir, "params.safetensors"), flat)
     with open(osp.join(out_dir, "model_config.json"), "w", encoding="utf-8") as f:
@@ -144,6 +145,16 @@ class InferencePackage:
         self.normalization = NormalizationStats(**meta["normalization"])
         self.duration_stats = meta.get("duration_stats") or None
         self.models = build_inference_models(mc)
+        if mc.generator.type == "ringformer":
+            # a line is cut at its frames x hop_length x coarse_multiplier
+            # samples; the ringformer emits prod(upsample_rates) x its iSTFT
+            # hop per (fine) frame
+            samples = self.models["speech_predictor"].generator.prior_hop
+            if samples != mc.hop_length:
+                raise ValueError(
+                    f"ringformer emits {samples} samples per frame (prod(upsample_rates) "
+                    f"x gen_istft_hop_size), the package cuts at hop_length "
+                    f"{mc.hop_length}")
         for name, module in self.models.items():
             module.load_state_dict(module_from_jax(module, params[name]))
             module.to(self.device).eval()

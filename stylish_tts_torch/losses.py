@@ -13,9 +13,9 @@ Counterpart of ``stylish_tts_tpu/losses.py``:
 * the prosody and duration losses: ``smooth_l1`` and
   ``pitch_energy_losses`` (textual), the class-weighted
   ``duration_ce_loss`` and ``masked_smooth_l1_per_sequence`` (duration);
-  their targets are stop-gradient.
-
-``magphase_loss`` (ringformer) is not ported yet.
+  their targets are stop-gradient;
+* the ringformer's ``magphase_loss``: the head's log-amplitude and phase
+  against the target STFT at the head's resolution ("mag", "phase").
 """
 
 from __future__ import annotations
@@ -73,6 +73,19 @@ def multi_phase_loss(pred_list: Sequence[torch.Tensor],
     for pred, target in zip(pred_list, target_list):
         loss = loss + differential_phase_loss(pred, target)
     return loss / len(pred_list)
+
+
+def magphase_loss(pred_magnitude: torch.Tensor, pred_phase: torch.Tensor,
+                  target_real: torch.Tensor, target_imag: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Log-magnitude L1 and the differential phase loss of (B, freq, frames)
+    predictions against a target STFT; the phases count only where the
+    target's magnitude exceeds 1e-3 (a mask without gradient)."""
+    target_mag = torch.sqrt(target_real ** 2 + target_imag ** 2) + 1e-14
+    mask = (target_mag > 1e-3).to(torch.float32).detach()
+    target_phase = mask * torch.atan2(target_imag, target_real)
+    mag = torch.mean(torch.abs(pred_magnitude - torch.log(target_mag + 1e-9)))
+    phase = differential_phase_loss(mask * pred_phase, target_phase)
+    return {"mag": mag, "phase": phase}
 
 
 def _median_lower(x: torch.Tensor) -> torch.Tensor:

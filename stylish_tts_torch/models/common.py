@@ -225,13 +225,13 @@ class AdaptiveDecoderBlock(nn.Module):
 
 
 class AdaptiveGeneratorBlock(nn.Module):
-    """Snake + AdaIN dilated resblock (dilations 1, 3, 5)."""
+    """Snake + AdaIN dilated resblock, one residual unit per dilation."""
 
-    DILATIONS = (1, 3, 5)
-
-    def __init__(self, channels: int, style_dim: int, kernel_size: int = 3):
+    def __init__(self, channels: int, style_dim: int, kernel_size: int = 3,
+                 dilations=(1, 3, 5)):
         super().__init__()
-        for i, dilation in enumerate(self.DILATIONS):
+        self.n_units = len(dilations)
+        for i, dilation in enumerate(dilations):
             setattr(self, f"alpha1_{i}", channel_param(channels, 1.0))
             setattr(self, f"alpha2_{i}", channel_param(channels, 1.0))
             self.add_module(f"adain1_{i}", AdaptiveInstanceNorm(channels, style_dim))
@@ -241,7 +241,7 @@ class AdaptiveGeneratorBlock(nn.Module):
             self.add_module(f"conv2_{i}", Conv1d(channels, channels, kernel_size))
 
     def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
-        for i in range(len(self.DILATIONS)):
+        for i in range(self.n_units):
             h = getattr(self, f"adain1_{i}")(x, style)
             h = snake(h, getattr(self, f"alpha1_{i}"))
             h = getattr(self, f"conv1_{i}")(h)

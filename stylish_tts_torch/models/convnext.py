@@ -5,7 +5,8 @@ Counterpart of ``stylish_tts_tpu/models/convnext.py``
 (k=7) -> AdaptiveLayerNorm (epsilon 1e-6) -> pointwise expand ->
 activation -> GRN -> pointwise contract -> ``drop_path`` (rate
 ``dropout``, 0 by default as in JAX; active in ``train()`` mode with a
-generator), residual.
+generator), residual. ``BasicConvNeXtBlock`` has no style: a plain
+LayerNorm (with scale and bias, epsilon 1e-6) and exact GELU.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from torch import nn
 from .common import (
     GRN,
     AdaptiveLayerNorm,
+    ChannelLayerNorm,
     Conv1d,
     Pointwise,
     channel_param,
@@ -65,3 +67,21 @@ class AdaptiveConvNeXtBlock(_ConvNeXtBlock):
 
     def activation(self, x: torch.Tensor) -> torch.Tensor:
         return F.gelu(x, approximate="none")
+
+
+class BasicConvNeXtBlock(nn.Module):
+    """Unconditioned ConvNeXt block (the text style encoder's)."""
+
+    FLAX_NAMES = {"norm": "LayerNorm_0", "grn": "GRN_0"}
+
+    def __init__(self, dim: int, intermediate_dim: int, kernel: int = 7):
+        super().__init__()
+        self.dwconv = Conv1d(dim, dim, kernel, groups=dim)
+        self.norm = ChannelLayerNorm(dim)
+        self.pwconv1 = Pointwise(dim, intermediate_dim)
+        self.grn = GRN(intermediate_dim)
+        self.pwconv2 = Pointwise(intermediate_dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.gelu(self.pwconv1(self.norm(self.dwconv(x))), approximate="none")
+        return x + self.pwconv2(self.grn(h))

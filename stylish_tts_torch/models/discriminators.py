@@ -17,8 +17,14 @@ Counterpart of ``stylish_tts_tpu/models/discriminators.py``
   ``dur_disc`` (kernel 5, durations).
 
 Each returns the list of per-layer score tensors (B, N) that the LSGAN /
-TPRLS losses take. ``PeriodDiscriminator`` and ``MultiPeriodDiscriminator``
-(not built by ``build_model``) are not ported yet.
+TPRLS losses take.
+
+* ``PeriodDiscriminator`` / ``MultiPeriodDiscriminator`` (HiFi-GAN, periods
+  2, 3, 5, 7, 11): audio reflect-padded to a multiple of the period and
+  folded to (B, 1, T/p, p), four (5, 1) convs at stride (3, 1) (32, 128,
+  512, 1024 channels), one more at 1024, a (3, 1) conv to one channel,
+  leaky ReLU 0.1; the score (B, N) and the feature maps. Like
+  ``build_model``, ``build_models`` does not build them.
 """
 
 from __future__ import annotations
@@ -137,3 +143,53 @@ class PitchDiscriminator(nn.Module):
             x = F.leaky_relu(getattr(self, f"conv_{i}")(x), 0.1)
             results.append(getattr(self, f"out_{i}")(x).flatten(1))
         return results
+
+
+class PeriodDiscriminator(nn.Module):
+    """Audio (B, T) -> (score (B, N), feature maps (B, C, T/p, p))."""
+
+    CHANNELS = (32, 128, 512, 1024)
+    FLAX_NAMES = {f"conv_{i}": f"Conv_{i}" for i in range(len(CHANNELS) + 2)}
+
+    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3):
+        super().__init__()
+        self.period = period
+        in_ch = 1
+        for i, ch in enumerate(self.CHANNELS):
+            self.add_module(f"conv_{i}", nn.Conv2d(in_ch, ch, (kernel_size, 1), (stride, 1),
+                                                   padding=(2, 0)))
+            in_ch = ch
+        n = len(self.CHANNELS)
+        self.add_module(f"conv_{n}", nn.Conv2d(in_ch, in_ch, (kernel_size, 1), padding=(2, 0)))
+        self.add_module(f"conv_{n + 1}", nn.Conv2d(in_ch, 1, (3, 1), padding=(1, 0)))
+
+    def forward(self, audio: torch.Tensor):
+        b, t = audio.shape
+        pad = (self.period - t % self.period) % self.period
+        x = F.pad(audio[:, None], (0, pad), mode="reflect").reshape(b, 1, -1, self.period)
+        fmap = []
+        n = len(self.CHANNELS)
+        for i in range(n + 1):
+            x = F.leaky_relu(getattr(self, f"conv_{i}")(x), 0.1)
+            fmap.append(x)
+        x = getattr(self, f"conv_{n + 1}")(x)
+        fmap.append(x)
+        return x.reshape(b, -1), fmap
+
+
+class MultiPeriodDiscriminator(nn.Module):
+    """Audio (B, T) -> (the periods' scores concatenated, all feature maps)."""
+
+    def __init__(self, periods=(2, 3, 5, 7, 11)):
+        super().__init__()
+        self.periods = tuple(periods)
+        for p in self.periods:
+            self.add_module(f"period_{p}", PeriodDiscriminator(p))
+
+    def forward(self, audio: torch.Tensor):
+        scores, fmaps = [], []
+        for p in self.periods:
+            score, fmap = getattr(self, f"period_{p}")(audio)
+            scores.append(score)
+            fmaps.extend(fmap)
+        return torch.cat(scores, dim=1), fmaps

@@ -55,6 +55,8 @@ def _draw(fn, shape, generator: SourceGenerator, device) -> torch.Tensor:
 
 class DecoderPrediction(NamedTuple):
     audio: torch.Tensor  # (B, T_samples)
+    magnitude: Optional[torch.Tensor] = None  # (B, freq, frames) log-amplitude
+    phase: Optional[torch.Tensor] = None  # (B, freq, frames)
 
 
 def linear_resize(x: torch.Tensor, new_len: int) -> torch.Tensor:

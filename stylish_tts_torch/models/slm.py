@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..dsp.stft import fp32_island
+from ..utils.device import resolve_device
 
 logger = logging.getLogger("stylish_tts_torch")
 
@@ -260,12 +261,14 @@ def _hf_state_dict(path: str) -> dict:
 
 
 def load_wavlm(model_name: str, allow_random_fallback: bool = False,
-               device="cpu") -> WavLMEncoder:
+               device="cuda") -> WavLMEncoder:
     """The frozen WavLM of the slm loss, in eval mode with
-    ``requires_grad_(False)``: from a local Hugging Face directory or file
+    ``requires_grad_(False)``, on ``device`` (``cuda`` unless the caller
+    asks for ``cpu``): from a local Hugging Face directory or file
     (nothing is downloaded), else, only with
     ``model.slm.allow_random_fallback: true``, the seeded random init.
     Without either it raises the JAX package's error."""
+    device = resolve_device(device)
     model = None
     try:
         sd = _hf_state_dict(model_name)

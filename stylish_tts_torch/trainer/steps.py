@@ -10,7 +10,9 @@ at each epoch's end.
 acoustic: ground-truth prosody -> speech_predictor (style from the mel
 style encoder) -> audio; the generator loss is mel spectral convergence +
 multi-phase + adversarial over the three MRDs and the waveform disc (+ slm
-through the frozen WavLM), combined by the loss-normalised
+through the frozen WavLM; + the MagPhase "mag" and "phase" terms against
+the target STFT at the head's resolution when the generator emits its
+log-amplitude and phase, the ringformer), combined by the loss-normalised
 ``backwards_loss``; AdamW on the two trained modules; then a discriminator
 step on the detached outputs, its loss scaled by sqrt(B): the sampled MRD
 and the waveform disc are updated at lr x their gap-aware multiplier
@@ -62,6 +64,7 @@ import torch
 from .. import losses as L
 from ..dsp.mel import MelSpectrogram
 from ..dsp.multi_spectrogram import MultiSpectrogram
+from ..dsp.stft import fp32_island, stft
 from ..models.models import STAGE_DISCRIMINATORS, STAGE_TRAIN_MODELS
 from ..ops import ctc as ctc_ops
 from ..ops.ctc_cuda import ctc_loss_with_priors_cuda
@@ -329,11 +332,25 @@ def _prosody_disc_phase(state: StageTrainState, stage: str, real, fake_detached,
     return pair.detach(), lr_mults
 
 
+@fp32_island
+def _magphase_metrics(ctx: StepContext, pred, audio_t) -> dict:
+    """The MagPhase terms of a generator that emits its head's
+    log-amplitude and phase, against the target STFT at the head's
+    n_fft / hop, both cut to the common frame count (float32)."""
+    gc = ctx.mc.generator
+    with torch.no_grad():
+        t_real, t_imag = stft(audio_t, gc.gen_istft_n_fft, gc.gen_istft_hop_size,
+                              gc.gen_istft_n_fft)
+    n = min(pred.magnitude.shape[-1], t_real.shape[-1])
+    return L.magphase_loss(pred.magnitude[:, :, :n], pred.phase[:, :, :n],
+                           t_real[:, :, :n], t_imag[:, :, :n])
+
+
 def make_acoustic_step(ctx: StepContext):
     """(state, batch on the state's device) -> metrics; updates ``state``
     in place. Metrics: device scalars ``mel``, ``multi_phase``,
-    ``generator``, ``slm`` (when on) and ``discriminator``; floats ``lr`` and
-    ``<disc>_lr_mult``."""
+    ``generator``, ``mag`` and ``phase`` (ringformer), ``slm`` (when on) and
+    ``discriminator``; floats ``lr`` and ``<disc>_lr_mult``."""
 
     def step(state: StageTrainState, batch: Batch):
         models = state.models
@@ -373,6 +390,8 @@ def make_acoustic_step(ctx: StepContext):
                 "generator": _adv_generator_metrics(ctx, models, feats_t, feats_p,
                                                     audio_t, pred_audio),
             }
+            if pred.magnitude is not None:
+                metrics.update(_magphase_metrics(ctx, pred, audio_t))
             if ctx.slm_loss_fn is not None:
                 if batch.slm_gt is not None:
                     from ..models.slm import wavlm_loss_cached

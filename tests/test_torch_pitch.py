@@ -130,3 +130,12 @@ def test_pitch_cuda_without_a_card_raises(dataset):
         "pitch", "--config", str(cfg), "--out", str(root / "o")])
     assert isinstance(result.exception, RuntimeError)
     assert "CUDA is not available" in str(result.exception)
+
+
+def test_extract_pitch_defaults_to_cuda():
+    """Called as the JAX function is (no device), the port's asks for CUDA
+    and raises where there is none, before it reads the dataset."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pitch_mod.extract_pitch_for_dataset(None, HOP, SR)

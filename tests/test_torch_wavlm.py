@@ -101,14 +101,14 @@ def test_loader_reads_a_local_checkpoint_and_guards_the_fallback(port_model, tmp
            .replace("parametrizations.weight.original1", "weight_v"): v for k, v in sd.items()}
     torch.save(old, str(bin_dir / "pytorch_model.bin"))
     for d in (st_dir, bin_dir):
-        m = pslm.load_wavlm(str(d))
+        m = pslm.load_wavlm(str(d), device="cpu")
         assert not m.training and not any(q.requires_grad for q in m.parameters())
         for k, v in m.state_dict().items():
             assert torch.equal(v, sd[k]), (d, k)
     missing = str(tmp_path / "nonexistent-model")
     with pytest.raises(RuntimeError, match="allow_random_fallback"):
-        pslm.load_wavlm(missing)
-    fallback = pslm.load_wavlm(missing, allow_random_fallback=True)
+        pslm.load_wavlm(missing, device="cpu")
+    fallback = pslm.load_wavlm(missing, allow_random_fallback=True, device="cpu")
     for k, v in fallback.state_dict().items():
         assert torch.equal(v, sd[k]), k  # the seeded init
 
@@ -130,3 +130,12 @@ def test_keys_and_outputs_match_transformers(port_model):
     for i, (a, b) in enumerate(zip(got, ref)):
         assert a.shape == b.shape
         assert (a - b).abs().max() / (b.abs().mean() + 1e-6) < 1e-2, i
+
+
+def test_load_wavlm_defaults_to_cuda():
+    """Called as the JAX loader is (no device), the port's asks for CUDA and
+    raises where there is none, instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pslm.load_wavlm("nonexistent-model", allow_random_fallback=True)
