@@ -132,9 +132,32 @@ Phases (any failure exits non-zero):
    step with the parity switches card against CPU (as in phase 7);
    ``convert`` of the duration stage's last checkpoint (every leaf bitwise),
    ``voicepack`` and ``speak`` of the 8 lines from it (as in phase 8);
-10. print the synthesis, front-end, acoustic, later-stage, recipe and
-   ringformer summary lines, the ``kernels`` JSON line (launch counts of the
-   front end's ``train-align``, the recipe's), then the device line last.
+10. the audiobook path, in phase 6's directory with phase 8's voice: a
+   seeded narration (36 segments of 7-9 s of harmonic "speech", 0.6 s
+   pauses) and a book (one chapter, one sentence of 260-380 phonemes per
+   segment) through ``dataset-from-audiobook`` (one segment per sentence,
+   every phoneme string tokenized in full, at most 510 symbols; seconds per
+   minute of narration; which g2p backend ran), then ``pitch``,
+   ``train-align`` (2 epochs, validation, checkpoints; its CTC counts zeroed
+   just before and read just after: alpha_beta = steps + validation batches,
+   grad = steps) and ``align`` (every segment's durations summing to its
+   bin's frames) through the CLI on ``cuda``; both kernels held against the
+   plain version (phase 3's tolerances) at the corpus's largest batch;
+   ``prepare-book --phonemize`` and ``speak`` of the book (as phase 5
+   checks; the longest line's tokens, RTF). ``generator.remat``: in one
+   child process per setting, the acoustic step at full width (bf16, slm
+   on, 440 frames) at B = 8, 16, 24, 32, 48, 64, 96 until the first OOM (peak
+   memory of each; at B = 16 the step's ms, device ms and launches); one
+   fp32 step with remat on, card against CPU (as phase 7). The OOM
+   shrink-and-skip: ``train --stage acoustic`` through the CLI in a child
+   process under a memory cap halfway between the B = 8 and B = 16 peaks,
+   its plan at B = 16 (at least one OOM, each lowering the bin by the 0.9
+   rule, the saved table at the lowered size, finite metrics, the peak
+   under the cap, only the steps that ran counted);
+11. print the synthesis, front-end, acoustic, later-stage, recipe,
+   ringformer and audiobook summary lines, the ``kernels`` JSON line
+   (``launches``: the audiobook ``train-align``'s; ``launches_by_path``:
+   that, the front end's and phase 2's), then the device line last.
 
 Tolerances: the kernels carry the trellis as float-float pairs and
 normalise gamma per frame (see csrc/ctc.cu), so they are held against the
@@ -526,35 +549,42 @@ def phase_check(torch, main_shape):
     }
     results = {}
     for i, (name, spec) in enumerate(cases.items()):
-        case = make_case(torch, seed=100 + i, **spec)
-        k_loss, k_grad = run_kernel(torch, case)
-        d_loss, d_grad = run_plain(torch, case, torch.float64)
-        f_loss, f_grad = run_plain(torch, case, torch.float32)
-        torch.cuda.synchronize()
-        loss_rel = float(((k_loss.double() - d_loss).abs()
-                          / d_loss.abs().clamp_min(1e-30)).max())
-        loss_abs = float((k_loss.double() - d_loss).abs().max())
-        grad_err = float((k_grad.double() - d_grad).abs().max())
-        grad_err32 = float((k_grad - f_grad).abs().max())
-        plain32_err = float((f_grad.double() - d_grad).abs().max())
-        finite = bool(torch.isfinite(k_loss).all() and torch.isfinite(k_grad).all())
-        results[name] = {
-            "shape": [spec["b"], spec["t"], spec["c"], spec["u"]],
-            "loss_max_rel_err": loss_rel, "loss_max_abs_err": loss_abs,
-            "grad_max_abs_err": grad_err,
-            "grad_max_abs_err_vs_plain_fp32": grad_err32,
-            "plain_fp32_grad_err_vs_fp64": plain32_err,
-        }
-        log(f"check {name} {spec['b']}x{spec['t']}x{spec['c']} U={spec['u']}: "
-            f"loss rel {loss_rel:.2e}, grad {grad_err:.2e} "
-            f"(vs plain fp32 {grad_err32:.2e}; plain fp32 vs fp64 {plain32_err:.2e})")
-        if not finite or loss_rel > LOSS_RTOL or grad_err > GRAD_ATOL:
-            fail(f"kernel disagrees with the plain version on {name}: "
-                 f"loss rel {loss_rel:.3e} (rtol {LOSS_RTOL}), grad "
-                 f"{grad_err:.3e} (atol {GRAD_ATOL})")
+        results[name], case = check_case(torch, name, spec, seed=100 + i)
         if name == "ragged_small":
             results["trellis_" + name] = check_trellis(torch, case)
     return results
+
+
+def check_case(torch, name, spec, seed):
+    """Both kernels against the plain version in float64 on one random case
+    of ``spec`` (``make_case``'s arguments): the loss and the gradient."""
+    case = make_case(torch, seed=seed, **spec)
+    k_loss, k_grad = run_kernel(torch, case)
+    d_loss, d_grad = run_plain(torch, case, torch.float64)
+    f_loss, f_grad = run_plain(torch, case, torch.float32)
+    torch.cuda.synchronize()
+    loss_rel = float(((k_loss.double() - d_loss).abs()
+                      / d_loss.abs().clamp_min(1e-30)).max())
+    loss_abs = float((k_loss.double() - d_loss).abs().max())
+    grad_err = float((k_grad.double() - d_grad).abs().max())
+    grad_err32 = float((k_grad - f_grad).abs().max())
+    plain32_err = float((f_grad.double() - d_grad).abs().max())
+    finite = bool(torch.isfinite(k_loss).all() and torch.isfinite(k_grad).all())
+    result = {
+        "shape": [spec["b"], spec["t"], spec["c"], spec["u"]],
+        "loss_max_rel_err": loss_rel, "loss_max_abs_err": loss_abs,
+        "grad_max_abs_err": grad_err,
+        "grad_max_abs_err_vs_plain_fp32": grad_err32,
+        "plain_fp32_grad_err_vs_fp64": plain32_err,
+    }
+    log(f"check {name} {spec['b']}x{spec['t']}x{spec['c']} U={spec['u']}: "
+        f"loss rel {loss_rel:.2e}, grad {grad_err:.2e} "
+        f"(vs plain fp32 {grad_err32:.2e}; plain fp32 vs fp64 {plain32_err:.2e})")
+    if not finite or loss_rel > LOSS_RTOL or grad_err > GRAD_ATOL:
+        fail(f"kernel disagrees with the plain version on {name}: "
+             f"loss rel {loss_rel:.3e} (rtol {LOSS_RTOL}), grad "
+             f"{grad_err:.3e} (atol {GRAD_ATOL})")
+    return result, case
 
 
 def case_log_probs(torch, case):
@@ -2982,10 +3012,544 @@ def phase_ringformer(torch, work: Path, card: str):
             "voicepack_s": voicepack_s, "trained_speak": spoken}
 
 
+# ---------------------------------------------------------------- phase 10
+
+# the audiobook path: a seeded narration of 36 segments of 7-9 s of
+# harmonic "speech" (as ``write_dataset``) with 0.6 s pauses, so that a
+# segment and its half-pauses stay under ``vad_split``'s 10 s cap and VAD
+# cuts at each pause; a book of one chapter with one sentence of 260-380
+# phonemes per segment, so that the packer's 510 budget keeps one sentence
+# per utterance (two pass it) and the pairing is one to one
+BOOK_SEGMENTS = 36
+BOOK_SPEECH_S = (7.0, 9.0)
+BOOK_PAUSE_S = 0.6
+BOOK_PHONEMES = (260, 380)
+BOOK_MAX_SYMBOLS = 510
+BOOK_VAL_FRACTION = 0.1
+BOOK_WORDS = (
+    "the morning was cold and road wet from rain she walked along river until found "
+    "old stone bridge nobody had crossed it for years moss grew thick on every rail "
+    "small boat drifted past its single lamp still burning her brother told wait there "
+    "bells rang when did ring sound rolled over water like thunder counted each stroke "
+    "at twelfth turned home house quiet fire in kitchen gone out garden window light"
+).split()
+# train-align on the audiobook corpus: 2 epochs, validation every 4 train
+# steps, a checkpoint every 5
+BOOK_EPOCHS = 2
+BOOK_VAL_INTERVAL = 4
+BOOK_SAVE_INTERVAL = 5
+# remat: the acoustic step at full width on phase 6's 440-frame clips, bf16,
+# slm on, in one child process per setting: each batch size in turn (2 steps;
+# at B = 16 2 warm-up steps, the median of 4, one traced) until the first OOM
+REMAT_SIZES = (8, 16, 24, 32, 48, 64, 96)
+REMAT_TIMED_B = 16
+# the first step's mel, multi-phase and slm terms with remat against without
+# (their forward runs the same kernels; the discriminators, bf16 with remat
+# by the JAX rule, enter neither)
+REMAT_FIRST_STEP_RTOL = 1e-3
+# the OOM run: ``train --stage acoustic`` through the CLI in a child process
+# under a memory cap between the B = 8 and B = 16 peaks (remat off), two
+# epochs on phase 6's corpus (the skipped batches and the prefetched ones
+# behind them can use up the first); its plan gives B = int(30 x 240 / 440)
+# = 16 at 440 frames
+OOM_PROBE_BATCH_MAX = 30
+OOM_EPOCHS = 2
+
+
+def write_narration(path: Path, n: int, seed: int) -> float:
+    """``n`` segments of 7-9 s of harmonic "speech", each followed but the
+    last by a pause of 0.6 s (a noise floor 1e-4), in one wav; returns its
+    seconds."""
+    import numpy as np
+
+    from stylish_tts_torch.data.wav import write_wav
+
+    rng = np.random.default_rng(seed)
+    sr = 24000
+    pieces = []
+    for i in range(n):
+        samples = int(rng.uniform(*BOOK_SPEECH_S) * sr)
+        t = np.arange(samples) / sr
+        f0 = rng.uniform(90, 220) * (1 + 0.1 * np.sin(2 * np.pi * 0.7 * t))
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        audio = sum(np.sin(k * phase) / k for k in range(1, 6)) * 0.2
+        audio = audio * (0.6 + 0.4 * np.sin(2 * np.pi * 3.1 * t) ** 2)
+        pieces.append(audio + 0.01 * rng.standard_normal(samples))
+        if i < n - 1:
+            pieces.append(1e-4 * rng.standard_normal(int(BOOK_PAUSE_S * sr)))
+    audio = np.concatenate(pieces).astype(np.float32)
+    write_wav(str(path), audio, sr)
+    return audio.shape[0] / sr
+
+
+def write_book(path: Path, n: int, seed: int):
+    """One chapter of ``n`` sentences of plain words, each of 260-380
+    phonemes under the port's ``phonemize`` (normalised first, as
+    ``prepare_dataset`` measures them). Returns the sentences."""
+    import numpy as np
+
+    from stylish_tts_torch.textproc import normalize_text, phonemize
+
+    rng = np.random.default_rng(seed)
+    sentences = []
+    while len(sentences) < n:
+        words, target = [], int(rng.integers(BOOK_PHONEMES[0], BOOK_PHONEMES[1] + 1))
+        while len(phonemize(normalize_text(" ".join(words)))) < target:
+            words.append(str(rng.choice(BOOK_WORDS)))
+        sentence = " ".join(words).capitalize() + "."
+        if len(phonemize(normalize_text(sentence))) <= BOOK_PHONEMES[1]:
+            sentences.append(sentence)
+    path.write_text("Chapter 1\n" + " ".join(sentences) + "\n", encoding="utf-8")
+    return sentences
+
+
+def book_dataset(torch, work: Path):
+    """``dataset-from-audiobook`` through the CLI: one segment per sentence,
+    each phoneme string tokenized in full and at most 510 symbols."""
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.data.wav import read_wav
+    from stylish_tts_torch.text import TextCleaner
+    from stylish_tts_torch.textproc import g2p
+
+    root = work / "audiobook"
+    root.mkdir()
+    seconds = write_narration(root / "narration.wav", BOOK_SEGMENTS, seed=40)
+    sentences = write_book(root / "book.txt", BOOK_SEGMENTS, seed=41)
+    data = root / "data"
+    _, wall = cli(torch, "dataset-from-audiobook", "--audio", str(root / "narration.wav"),
+                  "--book", str(root / "book.txt"), "--out", str(data), "--val-fraction",
+                  str(BOOK_VAL_FRACTION), device=False)
+    lines = []
+    for split in ("train", "val"):
+        lines += (data / f"{split}-list.txt").read_text(encoding="utf-8").splitlines()
+    wavs = sorted((data / "wav-dir").glob("*.wav"))
+    if not len(lines) == len(wavs) == len(sentences) == BOOK_SEGMENTS:
+        fail(f"dataset-from-audiobook: {len(lines)} lines and {len(wavs)} segments for "
+             f"{len(sentences)} sentences ({BOOK_SEGMENTS} narrated)")
+    mc = ModelConfig()
+    cleaner = TextCleaner(mc.symbol)
+    lengths, clip_s = [], []
+    for line in lines:
+        name, phonemes = line.split("|")[:2]
+        if len(cleaner(phonemes)) != len(phonemes) + 2 or len(phonemes) > BOOK_MAX_SYMBOLS:
+            fail(f"{name}: {len(phonemes)} phonemes, {len(cleaner(phonemes)) - 2} of them "
+                 f"tokenized (at most {BOOK_MAX_SYMBOLS}, all)")
+        lengths.append(len(phonemes))
+        clip_s.append(read_wav(str(data / "wav-dir" / name), mc.sample_rate).shape[0]
+                      / mc.sample_rate)
+    if not (BOOK_SPEECH_S[0] <= min(clip_s) and max(clip_s) <= 10.0):
+        fail(f"audiobook segments of {min(clip_s):.2f}-{max(clip_s):.2f} s")
+    backend = "espeak" if g2p.espeak_available() else "rules"
+    log(f"dataset-from-audiobook ({backend} g2p): {seconds:.1f} s of narration -> "
+        f"{len(lines)} segments of {min(clip_s):.2f}-{max(clip_s):.2f} s, phonemes "
+        f"{min(lengths)}-{max(lengths)}, in {wall:.2f} s ({wall / (seconds / 60):.3f} s per "
+        f"minute of narration)")
+    return root, data, {"g2p_backend": backend, "narration_s": seconds, "wall_s": wall,
+                        "s_per_narration_minute": wall / (seconds / 60),
+                        "segments": len(lines), "sentences": len(sentences),
+                        "phonemes_min_max": [min(lengths), max(lengths)],
+                        "clip_s_min_max": [min(clip_s), max(clip_s)]}
+
+
+def book_config(data: Path, path: Path) -> Path:
+    """The audiobook corpus's YAML: the alignment plan written out in full."""
+    import yaml
+
+    from stylish_tts_torch.config import Config
+
+    plan = Config().training_plan.alignment
+    path.write_text(yaml.safe_dump({
+        "dataset": {"path": str(data)},
+        "training": {"log_interval": 1, "val_interval": BOOK_VAL_INTERVAL,
+                     "save_interval": BOOK_SAVE_INTERVAL},
+        "training_plan": {"alignment": {"epochs": BOOK_EPOCHS,
+                                        "probe_batch_max": plan.probe_batch_max,
+                                        "lr": plan.lr}},
+    }), encoding="utf-8")
+    return path
+
+
+def book_train_align(torch, cfg, out):
+    """``train-align`` on the audiobook corpus through the CLI, the CTC
+    counts zeroed just before and read just after: alpha_beta = steps +
+    validation batches, grad = steps."""
+    import numpy as np
+
+    from stylish_tts_torch.ops import ctc_cuda
+
+    for name in ctc_cuda.LAUNCHES:
+        ctc_cuda.LAUNCHES[name] = 0
+    trainer, wall = cli(torch, "train-align", "--config", str(cfg), "--out", str(out),
+                        "--record-steps")
+    launches = dict(ctc_cuda.LAUNCHES)
+    steps = len(trainer.losses)
+    val_batches = sum(v["batches"] for v in trainer.validations)
+    if not steps or not all(np.isfinite(trainer.losses)) or not trainer.validations:
+        fail(f"audiobook train-align: losses {trainer.losses}, validations "
+             f"{trainer.validations}")
+    for v in trainer.validations:
+        if not (np.isfinite(v["align_loss"]) and 0.0 < v["confidence"] <= 1.0):
+            fail(f"audiobook validation at step {v['step']}: {v}")
+    if launches != {"alpha_beta": steps + val_batches, "grad": steps} or not all(
+            launches.values()):
+        fail(f"audiobook train-align CTC launches {launches}; expected alpha_beta = "
+             f"{steps} steps + {val_batches} validation batches, grad = {steps}")
+    names = checkpoint_dirs(out / "alignment")
+    log(f"train-align (audiobook): {steps} steps "
+        f"({trainer.manifest.current_total_step} train-split), {len(trainer.validations)} "
+        f"validations of {val_batches} batches in {wall:.1f} s; launches {launches}; loss "
+        f"{trainer.losses[0]:.4f} -> {trainer.losses[-1]:.4f}; checkpoints {names}")
+    return trainer, {"wall_s": wall, "steps": steps,
+                     "train_steps": trainer.manifest.current_total_step,
+                     "launches": launches, "validation_batches": val_batches,
+                     "validations": trainer.validations, "checkpoints": names,
+                     "loss_first_last": [trainer.losses[0], trainer.losses[-1]]}
+
+
+def book_align(torch, data, cfg, out):
+    """``align --method k2``: every segment's durations, one per token,
+    summing to the frames of its duration bin."""
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.data.caches import load_cache
+    from stylish_tts_torch.data.dataset import get_frame_count
+    from stylish_tts_torch.text import TextCleaner
+
+    _, seconds = cli(torch, "align", "--config", str(cfg), "--out", str(out),
+                     "--method", "k2")
+    cache = load_cache(str(data / "alignment.safetensors"))
+    cleaner = TextCleaner(ModelConfig().symbol)
+    n, frames_seen = 0, set()
+    for split in ("train", "val"):
+        ds = dataset(data, split)
+        ds.time_bins()
+        for seg in ds.segments:
+            durs = cache.get(seg.wav_path)
+            frames = get_frame_count(seg.time_bin)
+            tokens = len(cleaner(seg.phonemes))
+            frames_seen.add(frames)
+            if durs is None or durs.shape != (1, tokens) or durs.sum() != frames:
+                fail(f"alignment of {seg.wav_path}: "
+                     f"{None if durs is None else (durs.shape, float(durs.sum()))}, "
+                     f"{tokens} tokens, {frames} frames")
+            n += 1
+    log(f"align (audiobook): {n} segments in {seconds:.2f} s, bins of "
+        f"{min(frames_seen)}-{max(frames_seen)} frames")
+    return {"seconds": seconds, "segments": n, "frames_min_max": [min(frames_seen),
+                                                                  max(frames_seen)]}
+
+
+def book_kernel_check(torch, trainer, out):
+    """Both CTC kernels against the plain version (phase 3's tolerances) at
+    the corpus's largest train-align batch: the bin of the trainer's batch
+    plan with the most frames x planned batch, its label lengths."""
+    from stylish_tts_torch.data.collate import collate_batch
+    from stylish_tts_torch.data.dataset import get_frame_count
+    from stylish_tts_torch.data.sampler import BatchSizeTable
+    from stylish_tts_torch.trainer.steps import StepContext
+
+    table = BatchSizeTable(str(out / "alignment" / "alignment_batch_sizes.json"))
+    ds = trainer.build_dataset(trainer.config.dataset.train_data)
+    bins, _ = ds.time_bins()
+    time_bin = max(bins, key=lambda k: (table.get(k) * get_frame_count(k), k))
+    idxs = sorted(bins[time_bin])[:table.get(time_bin)]
+    batch, _ = collate_batch([ds.load_segment(i) for i in idxs],
+                             hop_length=trainer.mc.hop_length, require_pitch=False)
+    ctx = StepContext(trainer.mc, trainer.config.loss_weight.model_dump(),
+                      trainer.normalization)
+    with torch.no_grad():
+        t = ctx.norm_mel(torch.from_numpy(batch.audio_gt[:1]).cuda(),
+                         ctx.to_align_mel).shape[-1]
+    b, u = batch.text.shape
+    spec = dict(b=b, t=t, c=ctx.blank_id + 1, u=u,
+                label_lengths=batch.text_lengths.tolist(), input_lengths=[t] * b)
+    result, _ = check_case(torch, "audiobook_batch", spec, seed=140)
+    return result
+
+
+def book_speak(torch, work: Path, root: Path):
+    """``prepare-book --phonemize`` on the book through the synthesis CLI,
+    then ``speak`` of its lines with phase 8's package and static
+    voicepack: finite, in [-1, 1], each piece of 1 s or more at -25 +- 0.5
+    LUFS; the longest line's tokens, the document's RTF."""
+    import numpy as np
+
+    from stylish_tts_torch.cli import tts_cli
+    from stylish_tts_torch.data.wav import read_wav
+    from stylish_tts_torch.export.package import TEXT_BUCKETS, InferencePackage
+    from stylish_tts_torch.tts.loudness import integrated_loudness
+    from stylish_tts_torch.tts.voicepack import load_voicepack, lookup_static_style
+
+    lines_path, wav_path = root / "book_lines.txt", root / "book.wav"
+    t0 = time.time()
+    tts_cli.main(["prepare-book", "--text", str(root / "book.txt"), "--out",
+                  str(lines_path), "--phonemize"], standalone_mode=False)
+    prepare_s = time.time() - t0
+    lines = [x for x in lines_path.read_text(encoding="utf-8").splitlines() if x.strip()]
+    pkg = InferencePackage(str(work / "pkg"), device="cuda")
+    tokens = [pkg.tokenize(x.strip()).shape[0] for x in lines]
+    over = sum(n > TEXT_BUCKETS[-1] for n in tokens)
+    if over:
+        fail(f"prepare-book wrote {over} lines over the {TEXT_BUCKETS[-1]}-token bucket "
+             f"(tokens {tokens})")
+    t0 = time.time()
+    tts_cli.main(["speak", "--model", str(work / "pkg"), "--voicepack",
+                  str(work / "voicepack.safetensors"), "--text", str(lines_path), "--out",
+                  str(wav_path), "--device", "cuda"], standalone_mode=False)
+    torch.cuda.synchronize()
+    speak_s = time.time() - t0
+    wav = read_wav(str(wav_path), pkg.mc.sample_rate)
+    if not np.isfinite(wav).all() or np.abs(wav).max() > 1.0:
+        fail("speak of the book wrote a wav that is not finite or leaves [-1, 1]")
+    pack = load_voicepack(str(work / "voicepack.safetensors"))
+    start, gen_s, lufs = 0, 0.0, []
+    for line in lines:
+        toks = pkg.tokenize(line.strip())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        audio = pkg.generate_speech(toks, *lookup_static_style(pack, toks.shape[0]))
+        gen_s += time.perf_counter() - t1
+        piece = wav[start:start + audio.shape[0]]
+        start += audio.shape[0]
+        seconds = audio.shape[0] / pkg.mc.sample_rate
+        if seconds >= LUFS_MIN_SECONDS:
+            lufs.append(integrated_loudness(piece, pkg.mc.sample_rate))
+            if abs(lufs[-1] - LUFS_TARGET) > LUFS_TOL:
+                fail(f"a {seconds:.2f} s piece of the book is at {lufs[-1]:.2f} LUFS")
+    if start != wav.shape[0]:
+        fail(f"speak wrote {wav.shape[0]} samples for the book; its lines add up to {start}")
+    audio_s = wav.shape[0] / pkg.mc.sample_rate
+    log(f"prepare-book --phonemize: {len(lines)} lines in {prepare_s:.2f} s, tokens "
+        f"{min(tokens)}-{max(tokens)}; speak {audio_s:.1f} s of audio in {speak_s:.2f} s "
+        f"(RTF {speak_s / audio_s:.5f} with loading; lines alone {gen_s / audio_s:.5f}); "
+        f"LUFS {min(lufs):.2f}..{max(lufs):.2f}")
+    return {"lines": len(lines), "prepare_s": prepare_s, "tokens_max": max(tokens),
+            "tokens_min": min(tokens), "lines_over_512": over, "speak_s": speak_s,
+            "audio_s": audio_s, "rtf": speak_s / audio_s, "rtf_lines": gen_s / audio_s,
+            "lufs_min_max": [min(lufs), max(lufs)]}
+
+
+def remat_probe(torch, data: Path, remat: bool) -> dict:
+    """The acoustic step at full width (bf16, slm on, ``generator.remat`` as
+    given) on the first B clips of phase 6's corpus, B in ``REMAT_SIZES``
+    until the first OOM: each size's peak memory after 2 steps (the first
+    allocates the AdamW moments); at B = 16 the step timed and traced."""
+    from stylish_tts_torch.config import Config, ModelConfig
+    from stylish_tts_torch.models.slm import random_wavlm, wavlm_loss
+    from stylish_tts_torch.trainer.normalization import NormalizationStats
+    from stylish_tts_torch.trainer.steps import StepContext, batch_to_device, make_acoustic_step
+
+    free, total = torch.cuda.mem_get_info()
+    mc = ModelConfig()
+    mc.generator.remat = remat
+    state = stage_state(torch, mc, "cuda")
+    state.wavlm = random_wavlm(0).cuda().eval().requires_grad_(False)
+    ctx = StepContext(mc, Config().loss_weight.model_dump(), NormalizationStats(),
+                      stage_steps=10_000, slm_loss_fn=wavlm_loss, mixed_precision=True)
+    step = make_acoustic_step(ctx)
+    sizes = {}
+    for b in REMAT_SIZES:
+        batch = batch_to_device(acoustic_batch(torch, data, b), "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timed, metrics = [], []
+        try:
+            for _ in range(6 if b == REMAT_TIMED_B else 2):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                m = step(state, batch)
+                end.record()
+                end.synchronize()
+                timed.append(start.elapsed_time(end))
+                metrics.append({k: float(v) for k, v in m.items()})
+            oom = False
+        except torch.OutOfMemoryError:
+            oom = True
+        peak = torch.cuda.max_memory_allocated()
+        if oom:
+            sizes[b] = {"oom": True, "peak_bytes_at_oom": peak}
+            log(f"remat {remat}: B={b} out of memory (peak {peak / 2**30:.2f} GiB)")
+            break
+        row = {"oom": False, "peak_bytes": peak, "step_ms": timed, "metrics": metrics}
+        if b == REMAT_TIMED_B:
+            row["step_ms_median"] = statistics.median(timed[2:])
+            prof = profile_ranges(torch, lambda: step(state, batch), ())
+            row.update(device_ms=prof["device_ms"], launches=prof["launches"],
+                       traced_wall_ms=prof["traced_wall_ms"])
+        sizes[b] = row
+        log(f"remat {remat}: B={b} peak {peak / 2**30:.2f} GiB, steps "
+            f"{[round(x, 1) for x in timed]} ms")
+    fits = [b for b, r in sizes.items() if not r["oom"]]
+    return {"remat": remat, "sizes": sizes, "largest_b": max(fits) if fits else 0,
+            "free_bytes_at_start": free, "total_bytes": total}
+
+
+def oom_run(torch, work: Path, cap: int) -> dict:
+    """``train --stage acoustic`` through the CLI under a memory cap of
+    ``cap`` bytes (``set_per_process_memory_fraction``), with the plan's
+    B = 16 at 440 frames, alone (the later stages are not run), two epochs
+    on phase 6's corpus: the OOMs logged, the saved table, the steps that
+    ran."""
+    import re
+
+    import numpy as np
+    import yaml
+
+    from stylish_tts_torch.trainer import loop
+
+    root = work / "oom"
+    root.mkdir()
+    cfg, model_cfg = acoustic_configs(work / "data", root, acoustic_epochs=OOM_EPOCHS,
+                                      save_interval=1000)
+    raw = yaml.safe_load(cfg.read_text(encoding="utf-8"))
+    raw["training_plan"]["acoustic"]["probe_batch_max"] = OOM_PROBE_BATCH_MAX
+    raw["training"]["val_interval"] = 1000
+    cfg.write_text(yaml.safe_dump(raw), encoding="utf-8")
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    loop.NEXT_STAGE.clear()  # this child process runs the acoustic stage alone
+    trainer, wall = cli(torch, "train", "--stage", "acoustic", "--config", str(cfg),
+                        "--model-config", str(model_cfg), "--out", str(root / "out"),
+                        "--record-steps")
+    peak = torch.cuda.max_memory_allocated()
+    text = (root / "out" / "acoustic" / "train.log").read_text(encoding="utf-8")
+    shrinks = [[int(x) for x in m] for m in re.findall(
+        r"OOM on bin (\d+) at batch size (\d+); batch size lowered to (\d+)", text)]
+    stale = len(re.findall(r"OOM on stale prefetched batch", text))
+    table = json.loads((root / "out" / "acoustic" / "acoustic_batch_sizes.json")
+                       .read_text(encoding="utf-8"))
+    sizes = [len(b) for b in trainer.batches]
+    finite = all(np.isfinite(list(m.values())).all() for m in trainer.step_metrics)
+    return {"cap_bytes": cap, "peak_bytes": peak, "wall_s": wall, "shrinks": shrinks,
+            "stale_skips": stale, "table": table, "batch_sizes": sizes,
+            "steps": trainer.manifest.current_total_step,
+            "step_records": len(trainer.step_metrics), "finite": finite,
+            "mel_first_last": [trainer.step_metrics[0]["mel"],
+                               trainer.step_metrics[-1]["mel"]] if sizes else None}
+
+
+def child(torch, flag: str, *args) -> dict:
+    """Run this script's ``flag`` in a child process (the remat probes and
+    the OOM run: an expected OOM, and the memory cap, stay there); returns
+    the JSON it writes. This process hands its allocator's cached blocks
+    back first, so that the child has the card's memory but what this
+    process holds live."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"child {flag}: this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved); the card has "
+        f"{torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB free")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_child_") as tmp:
+        out = Path(tmp) / "result.json"
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), flag,
+                               *map(str, args), str(out)], timeout=600)
+        if proc.returncode != 0 or not out.is_file():
+            fail(f"child {flag} {args} exited {proc.returncode}")
+        return json.loads(out.read_text(encoding="utf-8"))
+
+
+def child_main(argv) -> int:
+    """``chip_smoke.py --remat-probe 0|1 DATA OUT`` or ``--oom-run WORK CAP
+    OUT``: one measurement in this process, its result written to OUT."""
+    torch = require_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    flag, *args, out = argv
+    if flag == "--remat-probe":
+        result = remat_probe(torch, Path(args[1]), args[0] == "1")
+    elif flag == "--oom-run":
+        result = oom_run(torch, Path(args[0]), int(args[1]))
+    else:
+        fail(f"unknown flag {flag}")
+    Path(out).write_text(json.dumps(result), encoding="utf-8")
+    return 0
+
+
+def book_remat(torch, work: Path) -> dict:
+    """The remat probes (off, then on), each in its own process; one fp32
+    step with remat on, card against CPU."""
+    from stylish_tts_torch.config import ModelConfig
+
+    probes = {name: child(torch, "--remat-probe", int(on), work / "data")
+              for name, on in (("off", False), ("on", True))}
+    for name, p in probes.items():
+        if not all(str(b) in p["sizes"] and not p["sizes"][str(b)]["oom"]
+                   for b in (8, REMAT_TIMED_B)):
+            fail(f"remat {name}: B = 8 or 16 did not fit: {p['sizes']}")
+    # the first step's forward (the same weights and batch, the generator's
+    # bf16 autocast either way): the terms the discriminators do not enter
+    first = {k: probes[k]["sizes"]["8"]["metrics"][0] for k in ("off", "on")}
+    probes["first_step_rel_err"] = {
+        k: abs(first["on"][k] - first["off"][k]) / abs(first["off"][k])
+        for k in ("mel", "multi_phase", "slm")}
+    if max(probes["first_step_rel_err"].values()) > REMAT_FIRST_STEP_RTOL:
+        fail(f"the first step with remat against without: {probes['first_step_rel_err']} "
+             f"(<= {REMAT_FIRST_STEP_RTOL})")
+    mc = ModelConfig()
+    mc.generator.remat = True
+    probes["card_vs_cpu"] = acoustic_card_vs_cpu(torch, work / "data", mc)
+    off, on = (probes[k]["sizes"][str(REMAT_TIMED_B)] for k in ("off", "on"))
+    log(f"remat at B={REMAT_TIMED_B}: step {off['step_ms_median']:.1f} -> "
+        f"{on['step_ms_median']:.1f} ms, device {off['device_ms']:.1f} -> "
+        f"{on['device_ms']:.1f} ms, launches {off['launches']} -> {on['launches']}, peak "
+        f"{off['peak_bytes'] / 2**30:.2f} -> {on['peak_bytes'] / 2**30:.2f} GiB; largest B "
+        f"that fits {probes['off']['largest_b']} -> {probes['on']['largest_b']}")
+    return probes
+
+
+def book_oom(torch, work: Path, probe_off: dict) -> dict:
+    """The OOM run in a child process, its cap halfway between the B = 8 and
+    B = 16 peaks without remat: at least one OOM, each lowering by the 0.9
+    rule, the saved table at the lowered size, finite metrics, the peak under
+    the cap, the steps only those that ran."""
+    p8, p16 = (probe_off["sizes"][str(b)]["peak_bytes"] for b in (8, REMAT_TIMED_B))
+    run = child(torch, "--oom-run", work, (p8 + p16) // 2)
+    shrinks, sizes = run["shrinks"], run["batch_sizes"]
+    chain = all(new == max(int(old * 0.9), 1) for _, old, new in shrinks)
+    final = min(new for _, _, new in shrinks) if shrinks else None
+    if (not shrinks or not chain or list(run["table"].values()) != [final]
+            or not run["finite"] or run["peak_bytes"] > run["cap_bytes"]
+            or not run["steps"] == run["step_records"] == len(sizes) or not sizes
+            or sizes[-1] > final):
+        fail(f"OOM run under a cap of {run['cap_bytes'] / 2**30:.2f} GiB: {run}")
+    log(f"OOM run: cap {run['cap_bytes'] / 2**30:.2f} GiB, shrinks {shrinks}, stale "
+        f"skips {run['stale_skips']}, table {run['table']}, {run['steps']} steps at sizes "
+        f"{sizes}, peak {run['peak_bytes'] / 2**30:.2f} GiB, {run['wall_s']:.1f} s")
+    return run
+
+
+def phase_audiobook(torch, work: Path, card: str):
+    """The audiobook path in phase 6's directory: narration and a book ->
+    ``dataset-from-audiobook`` -> ``pitch`` -> ``train-align`` -> ``align``
+    (the CTC kernels on it, and held against the plain version at its
+    largest batch) -> ``prepare-book --phonemize`` -> ``speak`` with phase
+    8's voice; then remat and the OOM shrink-and-skip."""
+    t0 = time.time()
+    root, data, report = book_dataset(torch, work)
+    report = {"dataset": report}
+    cfg = book_config(data, root / "book.yml")
+    out = root / "out"
+    _, report["pitch_s"] = cli(torch, "pitch", "--config", str(cfg), "--out", str(out))
+    trainer, report["train_align"] = book_train_align(torch, cfg, out)
+    report["align"] = book_align(torch, data, cfg, out)
+    report["kernel_check"] = book_kernel_check(torch, trainer, out)
+    report["speak"] = book_speak(torch, work, root)
+    report["path_s"] = time.time() - t0
+    report["remat"] = book_remat(torch, work)
+    report["oom"] = book_oom(torch, work, report["remat"]["off"])
+    report["wall_s"] = time.time() - t0
+    log(f"audiobook phase: {report['wall_s']:.1f} s (the path {report['path_s']:.1f} s)")
+    return report
+
+
 # ---------------------------------------------------------------- main
 
 
 def main() -> int:
+    if len(sys.argv) > 1:
+        return child_main(sys.argv[1:])
     torch = require_card()
     t_start = time.time()
     card = card_line()
@@ -2997,7 +3561,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         trainer, state, batch, main_run = phase_main_path(torch, Path(tmp))
-    launches = main_run["launches"]
     main_shape, step_ms, profile = phase_step_time(torch, trainer, state, batch)
 
     checks = phase_check(torch, main_shape)
@@ -3028,9 +3591,11 @@ def main() -> int:
         acoustic = phase_stages(torch, Path(tmp), card)
         recipe = phase_recipe(torch, Path(tmp))
         ringformer = phase_ringformer(torch, Path(tmp), card)
-    launches = front["train_align"]["launches"]
-    if not all(launches.values()):
-        fail(f"a CTC kernel of the front end's train-align never launched: {launches}")
+        audiobook = phase_audiobook(torch, Path(tmp), card)
+    front_launches = front["train_align"]["launches"]
+    if not all(front_launches.values()):
+        fail(f"a CTC kernel of the front end's train-align never launched: {front_launches}")
+    book_launches = audiobook["train_align"]["launches"]
 
     synthesis = phase_synthesis(torch, card)
 
@@ -3044,7 +3609,11 @@ def main() -> int:
              "grad_max_abs_err")):
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[key], "max_abs_err": checks["main_path"][err],
+            "launches": book_launches[key],
+            "launches_by_path": {"audiobook_train_align": book_launches[key],
+                                 "front_end_train_align": front_launches[key],
+                                 "main_path_train_align": main_run["launches"][key]},
+            "max_abs_err": max(checks["main_path"][err], audiobook["kernel_check"][err]),
             "ms": tm[key]["ms"], "plain_ms": tm[key]["plain_ms"],
             "bound_ms": tm[key]["bound_ms"], "bound_by": tm[key]["bound_by"],
             "library_ms": tm[key]["library_ms"]})
@@ -3052,7 +3621,8 @@ def main() -> int:
               "step_ms": step_ms, "step_profile": profile, "checks": checks,
               "timings": timings, "frame_fit": fit, "kernels": kernels,
               "front_end": front, "synthesis": synthesis, "acoustic": acoustic,
-              "recipe": recipe, "ringformer": ringformer, "wall_s": time.time() - t_start}
+              "recipe": recipe, "ringformer": ringformer, "audiobook": audiobook,
+              "wall_s": time.time() - t_start}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     log(f"total {time.time() - t_start:.1f} s; details in {OUT / 'chip_smoke.json'}")
@@ -3076,7 +3646,7 @@ def main() -> int:
         "pitch_f0_max_rel_err": front["pitch"]["f0_max_rel_err"],
         "pitch_truth_median_rel_err": front["pitch"]["truth_median_rel_err"],
         "train_align_s": front["train_align"]["wall_s"],
-        "train_align_launches": launches,
+        "train_align_launches": front_launches,
         "validation_batches": front["train_align"]["validation_batches"],
         "resume_loss_max_rel_err": front["resume"]["loss_max_rel_err"],
         "resume_weight_max_abs_err": front["resume"]["weight_max_abs_err"],
@@ -3175,6 +3745,46 @@ def main() -> int:
         "convert_leaves_bitwise": rf["convert"]["leaves"],
         "trained_rtf_b1": rf["trained_speak"]["rtf_b1"],
         "trained_speak_audio_s": rf["trained_speak"]["audio_s"]}}), flush=True)
+    ab, rem, oom = audiobook, audiobook["remat"], audiobook["oom"]
+    timed = {k: rem[k]["sizes"][str(REMAT_TIMED_B)] for k in ("off", "on")}
+    print(json.dumps({"audiobook": {
+        "card": card, "wall_s": ab["wall_s"], "path_s": ab["path_s"],
+        "g2p_backend": ab["dataset"]["g2p_backend"],
+        "narration_s": ab["dataset"]["narration_s"], "segments": ab["dataset"]["segments"],
+        "dataset_s_per_narration_minute": ab["dataset"]["s_per_narration_minute"],
+        "phonemes_min_max": ab["dataset"]["phonemes_min_max"], "pitch_s": ab["pitch_s"],
+        "train_align_s": ab["train_align"]["wall_s"],
+        "train_align_steps": ab["train_align"]["steps"],
+        "train_align_launches": ab["train_align"]["launches"],
+        "validation_batches": ab["train_align"]["validation_batches"],
+        "align_s": ab["align"]["seconds"], "align_frames_min_max": ab["align"]["frames_min_max"],
+        "kernel_check_shape": ab["kernel_check"]["shape"],
+        "kernel_check_loss_max_rel_err": ab["kernel_check"]["loss_max_rel_err"],
+        "kernel_check_grad_max_abs_err": ab["kernel_check"]["grad_max_abs_err"],
+        "book_lines": ab["speak"]["lines"], "book_tokens_max": ab["speak"]["tokens_max"],
+        "book_lines_over_512": ab["speak"]["lines_over_512"],
+        "book_audio_s": ab["speak"]["audio_s"], "book_rtf": ab["speak"]["rtf"],
+        "book_rtf_lines": ab["speak"]["rtf_lines"],
+        "book_lufs_min_max": ab["speak"]["lufs_min_max"],
+        **{f"remat_{k}_step_ms_b16": v["step_ms_median"] for k, v in timed.items()},
+        **{f"remat_{k}_device_ms_b16": v["device_ms"] for k, v in timed.items()},
+        **{f"remat_{k}_launches_b16": v["launches"] for k, v in timed.items()},
+        **{f"remat_{k}_peak_gib": {b: (r.get("peak_bytes") or r["peak_bytes_at_oom"]) / 2**30
+                                   for b, r in rem[k]["sizes"].items()}
+           for k in ("off", "on")},
+        **{f"remat_{k}_oom_at": [b for b, r in rem[k]["sizes"].items() if r["oom"]]
+           for k in ("off", "on")},
+        **{f"remat_{k}_largest_b": rem[k]["largest_b"] for k in ("off", "on")},
+        **{f"remat_{k}_free_gib_at_start": rem[k]["free_bytes_at_start"] / 2**30
+           for k in ("off", "on")},
+        "remat_first_step_rel_err": rem["first_step_rel_err"],
+        "remat_card_vs_cpu_metric_max_rel_err": max(rem["card_vs_cpu"]["metric_rel_err"].values()),
+        "remat_card_vs_cpu_weight_err_over_move": max(
+            rem["card_vs_cpu"]["weight_err_over_move"].values()),
+        "oom_cap_gib": oom["cap_bytes"] / 2**30, "oom_peak_gib": oom["peak_bytes"] / 2**30,
+        "oom_shrinks": oom["shrinks"], "oom_stale_skips": oom["stale_skips"],
+        "oom_table": oom["table"], "oom_steps": oom["steps"],
+        "oom_batch_sizes": oom["batch_sizes"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,12 @@ Counterpart of ``stylish_tts_tpu/cli.py``; ported so far: ``pitch`` (YIN,
 or RMVPE from a local ``--rmvpe-weights`` file), ``train-align`` (with
 ``--checkpoint``), ``train --stage acoustic|textual|duration`` (with
 ``--checkpoint`` and ``--reset-stage``), ``slm-cache``, ``align``,
-``align-textgrid``, ``convert``, ``voicepack [--dynamic]`` and ``speak``.
+``align-textgrid``, ``convert``, ``voicepack [--dynamic]``,
+``dataset-from-audiobook``, ``speak`` and ``prepare-book``.
 Every command that computes runs on ``--device cuda`` unless told
-``--device cpu``, and raises where CUDA is missing; ``convert`` is file work
-on the CPU and takes no device.
+``--device cpu``, and raises where CUDA is missing; ``convert``,
+``dataset-from-audiobook`` and ``prepare-book`` are file and text work on
+the CPU and take no device.
 """
 
 from __future__ import annotations
@@ -81,6 +83,34 @@ def train(config_path, model_config_path, out_dir, stage, checkpoint, reset_stag
                       record_steps=record_steps)
     trainer.train(stage, checkpoint=checkpoint, reset_stage=reset_stage)
     return trainer
+
+
+@train_cli.command("dataset-from-audiobook")
+@click.option("--audio", "audio_paths", required=True, multiple=True,
+              type=click.Path(exists=True),
+              help="narration wav file(s) or directory, in reading order")
+@click.option("--book", "book_path", required=True, type=click.Path(exists=True))
+@click.option("--out", "out_dir", required=True, type=click.Path())
+@click.option("--sample-rate", default=24000)
+@click.option("--val-fraction", default=0.05)
+def dataset_from_audiobook(audio_paths, book_path, out_dir, sample_rate, val_fraction):
+    """Build an LJSpeech-style training dataset from audiobook narration:
+    VAD-segment the audio, sentence-pack + phonemize the book text, pair
+    in reading order. Text and file work on the CPU."""
+    from .textproc.audiobook import prepare_dataset
+
+    paths = []
+    for p in audio_paths:
+        if osp.isdir(p):
+            paths.extend(osp.join(p, f) for f in sorted(os.listdir(p))
+                         if f.lower().endswith(".wav"))
+        else:
+            paths.append(p)
+    with open(book_path, encoding="utf-8") as f:
+        book_text = f.read()
+    os.makedirs(out_dir, exist_ok=True)
+    n_train, n_val = prepare_dataset(paths, book_text, out_dir, sample_rate, val_fraction)
+    click.echo(f"wrote {n_train} train / {n_val} val segments to {out_dir}")
 
 
 def _load_configs(config_path, model_config_path, checkpoint=None):
@@ -394,6 +424,31 @@ def speak(package_dir, voicepack_path, text_path, out_path, speed, device):
         f"wrote {out_path}: {full.shape[0] / pkg.mc.sample_rate:.2f}s "
         f"({len(pieces)} utterances)"
     )
+
+
+@tts_cli.command("prepare-book")
+@click.option("--text", "text_path", required=True, type=click.Path(exists=True))
+@click.option("--out", "out_path", required=True, type=click.Path())
+@click.option("--phonemize", "do_phonemize", is_flag=True, default=False,
+              help="emit IPA phonemes (espeak when available)")
+def prepare_book(text_path, out_path, do_phonemize):
+    """Split long-form text into synthesis-sized utterances, one per line,
+    ready for ``speak``. The sentences are packed by character length, as
+    the JAX command packs them. Text work on the CPU."""
+    from .textproc.book import pack_utterances, split_chapters
+    from .textproc.g2p import phonemize as g2p
+    from .textproc.normalize import normalize_text
+
+    with open(text_path, encoding="utf-8") as f:
+        text = f.read()
+    lines = []
+    for chapter in split_chapters(text):
+        sentences = [normalize_text(s) for s in chapter.sentences]
+        for utt in pack_utterances(sentences):
+            lines.append(g2p(utt) if do_phonemize else utt)
+    with open(out_path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    click.echo(f"wrote {len(lines)} utterances to {out_path}")
 
 
 if __name__ == "__main__":

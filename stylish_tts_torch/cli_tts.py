@@ -1,4 +1,5 @@
-"""``python -m stylish_tts_torch.cli_tts speak ...``: synthesis on the port."""
+"""``python -m stylish_tts_torch.cli_tts speak|prepare-book ...``: synthesis and
+the book front end on the port."""
 
 from .cli import tts_cli
 

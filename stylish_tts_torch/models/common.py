@@ -23,6 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
@@ -273,3 +274,15 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
     u = torch.rand(shape, generator=generator, device=x.device, dtype=torch.float32)
     return x * (u < keep).to(x.dtype) / keep
+
+
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat`` and autograd recording, through
+    ``torch.utils.checkpoint`` (non-reentrant): only the inputs are kept and
+    the forward runs again in the backward, under the autocast of the
+    first run (the JAX ``nn.remat``). No RNG state is saved, since the
+    blocks wrapped so draw no random numbers. Without autograd (synthesis,
+    validation) it is a plain call."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)

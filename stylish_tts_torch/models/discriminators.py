@@ -17,7 +17,10 @@ Counterpart of ``stylish_tts_tpu/models/discriminators.py``
   ``dur_disc`` (kernel 5, durations).
 
 Each returns the list of per-layer score tensors (B, N) that the LSGAN /
-TPRLS losses take.
+TPRLS losses take. With ``remat`` (``build_models`` passes
+``generator.remat``, as the JAX ``build_model`` wraps these two in
+``nn.remat``) the MRD's and the waveform disc's forward is rematerialised
+in the backward (``common.remat_call``).
 
 * ``PeriodDiscriminator`` / ``MultiPeriodDiscriminator`` (HiFi-GAN, periods
   2, 3, 5, 7, 11): audio reflect-padded to a multiple of the period and
@@ -35,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Conv1d, Norm1d
+from .common import Conv1d, Norm1d, remat_call
 
 # (kernel (freq, frames), stride, padding) of the MRD's five convs
 SPEC_LAYERS = (
@@ -50,8 +53,9 @@ SPEC_LAYERS = (
 class SpecDiscriminator(nn.Module):
     """(B, 1, freq, frames) |FFT| magnitude -> 5 score tensors."""
 
-    def __init__(self, channels: int = 32):
+    def __init__(self, channels: int = 32, remat: bool = False):
         super().__init__()
+        self.remat = remat
         in_ch = 1
         for i, (kernel, stride, pad) in enumerate(SPEC_LAYERS):
             self.add_module(f"conv_{i}", nn.Conv2d(in_ch, channels, kernel, stride, pad))
@@ -59,6 +63,9 @@ class SpecDiscriminator(nn.Module):
             in_ch = channels
 
     def forward(self, y: torch.Tensor) -> List[torch.Tensor]:
+        return remat_call(self.remat, self._scores, y)
+
+    def _scores(self, y: torch.Tensor) -> List[torch.Tensor]:
         x = y
         results = []
         for i in range(len(SPEC_LAYERS)):
@@ -88,8 +95,9 @@ class ContextFreeDiscriminator(nn.Module):
 
     WIN, STEP = 1024, 512
 
-    def __init__(self, dim: int = 64, norm_mode: str = "group"):
+    def __init__(self, dim: int = 64, norm_mode: str = "group", remat: bool = False):
         super().__init__()
+        self.remat = remat
         d, nm = dim, norm_mode
         self.conv0 = ContextFreeBlock(1, d, 11, stride=4, norm_mode=nm)
         self.conv1 = ContextFreeBlock(d, d * 2, 11, stride=4, norm_mode=nm)
@@ -105,6 +113,9 @@ class ContextFreeDiscriminator(nn.Module):
         self.last1 = nn.Linear(d * 8, 1)
 
     def forward(self, audio: torch.Tensor) -> List[torch.Tensor]:
+        return remat_call(self.remat, self._scores, audio)
+
+    def _scores(self, audio: torch.Tensor) -> List[torch.Tensor]:
         b, t = audio.shape
         if t < self.WIN:  # the JAX gather clamps past the end: edge samples
             audio = F.pad(audio[:, None], (0, self.WIN - t), mode="replicate")[:, 0]

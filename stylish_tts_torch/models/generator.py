@@ -24,6 +24,12 @@ mode the conformer's dropout (0.2) draws from ``dropout_generator``.
 Its phase is a float32 cumulative sum over frames times 2*pi*hop, which
 reaches ~1.7e5 rad at 1000 frames, where one float32 ulp is 0.016 rad:
 two implementations that sum in another order differ by that much.
+
+``generator.remat`` (``Generator(remat=True)``) rematerialises each
+``amp_convnext_i``, ``upblock_i`` and ``phase_convnext_i`` call in the
+backward (``common.remat_call``), the blocks that the JAX ``nn.remat``
+wraps; the call is made inside ``forward``, so the ``state_dict`` keys do
+not change. Without autograd (synthesis, validation) nothing changes.
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from torch import nn
 
 from ..config import GeneratorConfig
 from ..dsp import stft as stft_lib
-from .common import AdaptiveGeneratorBlock, ChannelLayerNorm, Conv1d
+from .common import AdaptiveGeneratorBlock, ChannelLayerNorm, Conv1d, remat_call
 from .conformer import Conformer
 from .convnext import GeneratorConvNeXtBlock
 
@@ -120,8 +126,9 @@ class Generator(nn.Module):
     def __init__(self, style_dim: int, n_fft: int, hop_length: int, sample_rate: int,
                  scale: int, scalehop: int, start_fft: int, hidden_dim: int,
                  input_dim: int, io_conv_kernel_size: int, conv_layers: int,
-                 upsample_rates: Sequence[int]):
+                 upsample_rates: Sequence[int], remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.head_fft = n_fft // scale
         self.head_hop = hop_length // scalehop
         self.start_fft = start_fft
@@ -157,6 +164,9 @@ class Generator(nn.Module):
         self.phase_real_conv = Conv1d(hidden_dim, hidden_dim, k)
         self.phase_imag_conv = Conv1d(hidden_dim, hidden_dim, k)
 
+    def _block(self, name: str, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+        return remat_call(self.remat, getattr(self, name), x, style)
+
     def forward(self, mel: torch.Tensor, style: torch.Tensor, pitch: torch.Tensor,
                 voiced: torch.Tensor, *, generator: SourceGenerator = None,
                 prior: torch.Tensor | None = None,
@@ -179,16 +189,16 @@ class Generator(nn.Module):
 
         x = mel
         for i in range(self.amp_layers):
-            x = getattr(self, f"amp_convnext_{i}")(x, style)
+            x = self._block(f"amp_convnext_{i}", x, style)
         for i, stride in enumerate(self.upsample_rates):
             x = pixel_shuffle_1d(getattr(self, f"upconv_{i}")(x), stride)
-            x = getattr(self, f"upblock_{i}")(x, style)
+            x = self._block(f"upblock_{i}", x, style)
 
         logamp = self.amp_output_conv(self.amp_final_norm(x))
         phase = self.phase_input_conv(torch.cat([x, logamp_prior, phase_prior], dim=1))
         phase = self.phase_norm(phase)
         for i in range(self.conv_layers):
-            phase = getattr(self, f"phase_convnext_{i}")(phase, style)
+            phase = self._block(f"phase_convnext_{i}", phase, style)
         phase = self.phase_final_norm(phase)
         phase = torch.atan2(self.phase_imag_conv(phase).float(),
                             self.phase_real_conv(phase).float())
@@ -225,7 +235,7 @@ class MultiGenerator(nn.Module):
             sample_rate=sample_rate, scale=8, scalehop=75, start_fft=0,
             hidden_dim=n_fft // 2 // 8, input_dim=hidden_dim,
             io_conv_kernel_size=k, conv_layers=config.conv_layers,
-            upsample_rates=(3, 5, 5))
+            upsample_rates=(3, 5, 5), remat=config.remat)
 
     def forward(self, *, mel: torch.Tensor, style: torch.Tensor, pitch: torch.Tensor,
                 voiced: torch.Tensor, generator: SourceGenerator = None,

@@ -75,7 +75,7 @@ def build_inference_models(model_config: ModelConfig) -> Dict[str, nn.Module]:
 
 def build_models(model_config: ModelConfig) -> Dict[str, nn.Module]:
     """Every module of ``build_model`` but the aligner, with its
-    ``norm_mode`` and ``sn`` rules."""
+    ``norm_mode``, ``sn`` and ``generator.remat`` rules."""
     mc = model_config
     se = mc.style_encoder
     sn = not mc.imported_weights
@@ -87,8 +87,9 @@ def build_models(model_config: ModelConfig) -> Dict[str, nn.Module]:
     return {
         **build_inference_models(mc),
         "disc": ContextFreeDiscriminator(
-            norm_mode="affine" if mc.imported_weights else "group"),
-        **{f"mrd{i}": SpecDiscriminator() for i in range(3)},
+            norm_mode="affine" if mc.imported_weights else "group",
+            remat=mc.generator.remat),
+        **{f"mrd{i}": SpecDiscriminator(remat=mc.generator.remat) for i in range(3)},
         "speech_style_encoder": mel_style_encoder(),
         "pe_style_encoder": PitchStyleEncoder(
             se.n_mels, mc.style_dim, se.max_channels, se.skip_downsample,

@@ -35,6 +35,19 @@ moments and step 0, the WavLM and the slm cache dropped.
 The per-step host records (``losses``, ``step_metrics``, ``batches``) are
 kept only with ``record_steps``; the JAX loop keeps none.
 
+Memory guards of every train step (the JAX ``run_stage``'s): a step that
+runs out of device memory (``classify_step_failure``) lowers its duration
+bin's batch size for good (``BatchSizeTable.shrink``, x0.9, saved) and
+skips the batch without counting a step; a prefetched batch larger than
+the bin's current size is skipped without a second shrink; an OOM after the
+step's first optimizer update began (``state.update_begun``) lowers the
+bin, then raises: the state is partly updated, so the run resumes from its
+last checkpoint. With ``STYLISH_DEBUG_NANSTEP=1`` every step's metrics
+are synced, and the first nonfinite one dumps the batch to
+``nan_batch_step{i}.npz`` in the stage directory and raises; without it
+the metrics reach the host once per ``log_interval``
+(``_metrics_to_host``).
+
 Runs eagerly on one device (the JAX ``n_devices`` is 1 here).
 A failing validation batch raises: the JAX loop logs and skips it.
 """
@@ -67,7 +80,7 @@ from ..utils.params_io import save_text_aligner_safetensors
 from .checkpoint import Manifest, load_checkpoint, save_checkpoint
 from .loss_log import MetricsWriter, broadcast, combine_metrics
 from .normalization import NormalizationStats, compute_stats_streaming
-from .state import create_stage_train_state, create_train_state
+from .state import TrainState, create_stage_train_state, create_train_state
 from .steps import (
     StepContext,
     batch_to_device,
@@ -83,6 +96,43 @@ logger = logging.getLogger("stylish_tts_torch")
 
 STAGES = ("alignment", "acoustic", "textual", "duration")
 NEXT_STAGE = {"acoustic": "textual", "textual": "duration"}
+
+
+def classify_step_failure(exc) -> str:
+    """Classify a train-step exception (or its message), as the JAX loop's
+    classifier does.
+
+    "oom"       - device memory exhausted: a ``torch.OutOfMemoryError``
+                  (CUDA's "CUDA out of memory"), or a message with XLA's
+                  ``RESOURCE_EXHAUSTED`` or ``OOM``; the loop lowers the bin;
+    "transient" - a message of XLA's remote compile service; kept so that
+                  the kinds match JAX's, but the port compiles nothing
+                  remotely and retries nothing: the loop raises it;
+    "fatal"     - anything else.
+    """
+    if isinstance(exc, torch.OutOfMemoryError):
+        return "oom"
+    msg = str(exc)
+    if "RESOURCE_EXHAUSTED" in msg or "OOM" in msg:
+        return "oom"
+    if "remote_compile" in msg or "response body closed" in msg or "UNAVAILABLE" in msg:
+        return "transient"
+    return "fatal"
+
+
+def _metrics_to_host(window) -> List[Dict[str, float]]:
+    """A window of step metric dicts as host floats, every device scalar of
+    the window moved in one copy: the loop's only host sync of metrics,
+    once per ``log_interval`` (per step under ``STYLISH_DEBUG_NANSTEP``)."""
+    tensor_keys = sorted(k for k, v in window[0].items() if torch.is_tensor(v))
+    packed = torch.stack([torch.stack([m[k].float() for k in tensor_keys])
+                          for m in window]).cpu().numpy()
+    rows = []
+    for m, row in zip(window, packed):
+        host = {k: float(v) for k, v in m.items() if not torch.is_tensor(v)}
+        host.update(zip(tensor_keys, map(float, row)))
+        rows.append(host)
+    return rows
 
 
 def select_validation_samples(paths: List[str], count: int, force: List[str]) -> List[str]:
@@ -309,6 +359,7 @@ class Trainer:
             stage_steps=stage_steps, base_lr=plan.lr,
         )
         step_fn = make_alignment_step(ctx)
+        debug = os.environ.get("STYLISH_DEBUG_NANSTEP") == "1"
 
         window: List[Dict[str, object]] = []
         t_start = time.time()
@@ -320,11 +371,18 @@ class Trainer:
                 device_put=lambda b: batch_to_device(b, self.device),
                 depth=max(cfg.training.data_workers // 2, 2),
             )
-            for i, (_bin, batch, paths) in enumerate(loader):
+            for i, (time_bin, batch, paths) in enumerate(loader):
                 if skip_batches > 0:
                     skip_batches -= 1
                     continue
-                window.append(step_fn(state, batch))
+                metrics = self._step_or_skip(step_fn, state, batch, time_bin, table)
+                if metrics is None:
+                    del batch
+                    self._release_after_oom(state)
+                    continue
+                if debug:
+                    self._debug_nanstep(metrics, batch, paths, time_bin, i + 1, out_dir)
+                window.append(metrics)
                 if self.batches is not None:
                     self.batches.append(paths)
                 self.manifest.current_step = i + 1
@@ -362,6 +420,68 @@ class Trainer:
         save_checkpoint(out_dir, state, self.manifest, cfg, self.mc,
                         self.normalization)
         return state
+
+    def _step_or_skip(self, step_fn, state, batch, time_bin: int,
+                      table: BatchSizeTable) -> Optional[Dict[str, object]]:
+        """``step_fn(state, batch)``'s metrics; None where the step ran out of
+        device memory and the batch is skipped: the bin's batch size lowered
+        for good (a stale prefetched batch larger than the bin's current size
+        lowers nothing). An OOM after the step's first optimizer update began
+        lowers the bin and raises."""
+        state.update_begun = False
+        try:
+            return step_fn(state, batch)
+        except Exception as exc:
+            if classify_step_failure(exc) != "oom":
+                raise
+            size, planned = int(batch.audio_gt.shape[0]), table.get(time_bin)
+            if size > planned:
+                logger.warning("OOM on stale prefetched batch (bin %d, size %d > planned "
+                               "%d); skipping", time_bin, size, planned)
+                new_size = planned
+            else:
+                new_size = table.shrink(time_bin)
+                logger.warning("OOM on bin %d at batch size %d; batch size lowered to %d",
+                               time_bin, size, new_size)
+            if state.update_begun:
+                raise RuntimeError(
+                    "OOM after the step's first optimizer update began: the training "
+                    f"state is partly updated; bin {time_bin}'s batch size is durably "
+                    f"lowered to {new_size}; resume from the last checkpoint.") from exc
+        # the except block is left: its traceback, which held the step's
+        # activations, is gone
+        return None
+
+    def _release_after_oom(self, state) -> None:
+        """Drop every gradient and hand the allocator's free blocks back, so
+        that the next batch does not meet the same full allocator."""
+        opts = ([state.optimizer] if isinstance(state, TrainState)
+                else state.optimizers.values())
+        for opt in opts:
+            opt.zero_grad(set_to_none=True)
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def _debug_nanstep(self, metrics, batch, paths, time_bin: int, step: int,
+                       out_dir: str) -> None:
+        """``STYLISH_DEBUG_NANSTEP=1``: sync this step's metrics; on a
+        nonfinite one, dump the batch (bf16 fields as float32), its paths and
+        bin to ``nan_batch_step{step}.npz`` and raise."""
+        host = _metrics_to_host([metrics])[0]
+        bad = [k for k, v in host.items() if not np.isfinite(v)]
+        if bad:
+            dump = osp.join(out_dir, f"nan_batch_step{step}.npz")
+            fields = {f: getattr(batch, f) for f in batch._fields
+                      if getattr(batch, f) is not None}
+            np.savez(dump, paths=np.asarray(paths), time_bin=time_bin,
+                     **{f: (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
+                        if torch.is_tensor(v) else np.asarray(v)
+                        for f, v in fields.items()})
+            logger.error("nonfinite metrics %s at step %d (bin %d, paths %s); batch "
+                         "dumped to %s", bad, step, time_bin, paths, dump)
+            raise RuntimeError(f"debug: nonfinite {bad}")
+        logger.info("debug step %d bin %d ok: %s", step, time_bin,
+                    {k: round(v, 3) for k, v in host.items()})
 
     def _plan_table(self, stage, train_bins, out_dir) -> BatchSizeTable:
         """The stage's batch size per bin, capped by the bin's population
@@ -405,6 +525,7 @@ class Trainer:
             sampled_mrd_only=cfg.training.sampled_mrd_only,
         )
         step_fn = self._make_step(stage, ctx, train_ds)
+        debug = os.environ.get("STYLISH_DEBUG_NANSTEP") == "1"
 
         window: List[Dict[str, object]] = []
         t_start = time.time()
@@ -416,11 +537,18 @@ class Trainer:
                 device_put=lambda b: batch_to_device(b, self.device),
                 depth=max(cfg.training.data_workers // 2, 2),
             )
-            for i, (_bin, batch, paths) in enumerate(loader):
+            for i, (time_bin, batch, paths) in enumerate(loader):
                 if skip_batches > 0:
                     skip_batches -= 1
                     continue
-                window.append(step_fn(state, batch))
+                metrics = self._step_or_skip(step_fn, state, batch, time_bin, table)
+                if metrics is None:
+                    del batch
+                    self._release_after_oom(state)
+                    continue
+                if debug:
+                    self._debug_nanstep(metrics, batch, paths, time_bin, i + 1, out_dir)
+                window.append(metrics)
                 if self.batches is not None:
                     self.batches.append(paths)
                 self.manifest.current_step = i + 1
@@ -447,14 +575,7 @@ class Trainer:
     def _log_metrics(self, window, ctx, total_step, header):
         """Move the window's device scalars to the host in one copy and log
         the means (every step's metrics kept with ``record_steps``)."""
-        tensor_keys = sorted(k for k, v in window[0].items() if torch.is_tensor(v))
-        packed = torch.stack([torch.stack([m[k].float() for k in tensor_keys])
-                              for m in window]).cpu().numpy()
-        rows = []
-        for m, row in zip(window, packed):
-            host = {k: float(v) for k, v in m.items() if not torch.is_tensor(v)}
-            host.update(zip(tensor_keys, map(float, row)))
-            rows.append(host)
+        rows = _metrics_to_host(window)
         window.clear()
         if self.step_metrics is not None:
             self.step_metrics.extend(rows)
@@ -514,10 +635,11 @@ class Trainer:
                     steps_per_epoch):
         """Move the window's device scalars to the host in one copy, log the
         average, and keep every align_loss."""
-        losses = torch.stack([m["align_loss"] for m in window]).cpu().numpy()
+        rows = _metrics_to_host(window)
+        losses = [r["align_loss"] for r in rows]
         if self.losses is not None:
-            self.losses.extend(float(x) for x in losses)
-        lr = window[-1]["lr"]
+            self.losses.extend(losses)
+        lr = rows[-1]["lr"]
         window.clear()
         broadcast(
             {"align_loss": float(np.mean(losses))}, ctx.weights, self.writer, total_step,

@@ -21,6 +21,12 @@ it is one mutable object that the step updates in place:
 ``state_dict`` / ``load_state_dict`` carry everything but the WavLM through
 a checkpoint (``trainer/checkpoint.py``). A later stage's checkpoint
 carries every module, as the JAX tree does.
+
+``update_begun`` (never checkpointed) is the step's mark: the loop clears
+it before each step and the step sets it where its first optimizer update
+begins. An out-of-memory failure before it leaves the state as it was but
+for the generators' draws; after it the state is partly updated (the JAX
+donated buffers), and the loop raises.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ class TrainState:
     prior_count: torch.Tensor
     generator: torch.Generator
     step: int = 0
+    update_begun: bool = False
 
     def state_dict(self) -> dict:
         """Everything a resume needs, as tensors, numbers and containers of
@@ -96,6 +103,7 @@ class StageTrainState:
     disc_index_generator: torch.Generator
     step: int = 0
     wavlm: Optional[nn.Module] = None
+    update_begun: bool = False
 
     GENERATORS = ("dropout_generator", "model_generator", "disc_index_generator")
 

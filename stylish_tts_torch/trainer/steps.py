@@ -46,7 +46,13 @@ generator head's atan2/exp, the WavLM logits and resampler, the predicted
 curves and durations, and the losses stay float32; the acoustic
 discriminators run in bf16 only when ``generator.remat`` is set too (the
 JAX ``disc_dtype`` rule), the pitch and duration discriminators always in
-float32 (as the JAX steps run them).
+float32 (as the JAX steps run them). ``generator.remat`` also
+rematerialises the generator's ConvNeXt blocks and the MRD and waveform
+disc forwards in the backward (``models/common.py`` ``remat_call``).
+
+The first optimizer update of a step sets ``state.update_begun``: an
+out-of-memory failure after it leaves a partly updated state, which the
+loop does not carry on from.
 
 The JAX key's per-step splits become the state's generators; the
 ``parity_deterministic`` / ``parity_prior`` / ``forced_disc_index``
@@ -191,6 +197,7 @@ def make_alignment_step(ctx: StepContext):
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         lr = cosine_lr(ctx.base_lr, state.step, ctx.stage_steps)
+        state.update_begun = True
         apply_module_update(aligner, state.optimizer, lr)
 
         # label-prior accumulation (logsumexp-merge)
@@ -261,7 +268,8 @@ def _generator_phase_grads(state: StageTrainState, stage: str) -> None:
 
 def _update_trained(state: StageTrainState, stage: str, lr: float) -> None:
     """AdamW on the modules ``stage`` trains, each through the nonfinite
-    guard (one host sync)."""
+    guard (one host sync): the step's first optimizer update."""
+    state.update_begun = True
     names = STAGE_TRAIN_MODELS[stage]
     flags = modules_finite([state.models[n] for n in names])
     for name, flag in zip(names, flags):
