@@ -71,8 +71,8 @@ Phases (any failure exits non-zero):
 7. the three stages of ``train`` at the full default ``ModelConfig()`` on
    phase 6's corpus and caches: ``train --stage acoustic`` through the CLI
    (bf16, the slm term on with the seeded random WavLM; acoustic
-   ``probe_batch_max`` 16, B = 8 by the batch plan at 440 frames, 2 epochs
-   = 40 steps; then textual and duration, their plans written out in full,
+   ``probe_batch_max`` 16, B = 8 by the batch plan at 440 frames, 1 epoch
+   = 20 steps; then textual and duration, their plans written out in full,
    B = 17, 1 epoch = 9 steps each; validation every 4 steps with eval wavs,
    a checkpoint every 2 steps) with deterministic cuDNN, its CTC launch
    counts zeroed before and read after (0: no Pallas kernel backs these
@@ -80,13 +80,14 @@ Phases (any failure exits non-zero):
    manifest; the frozen modules bitwise across both hand-offs. Against that
    run (the same batches, metrics within 1e-2 relative, each stage's
    trained modules within 0.05 of their move, L2): a resume from the
-   oldest kept acoustic checkpoint, which runs on through textual and
-   duration; ``--stage textual`` from the acoustic stage's last checkpoint
-   (the acoustic modules bitwise); a resume from the oldest kept textual
-   checkpoint. One fp32 step of each stage with the parity switches on the
-   card against the CPU from the same weights (B=2, 1 s; metrics 1e-3
-   relative, each trained module's weights within 0.1 of the step's move,
-   L2; see ``CARD_CPU_*``). 20 bf16 steps of each stage on one fixed batch
+   oldest kept acoustic checkpoint that ends with acoustic (the later
+   stages at 0 epochs); ``--stage textual`` from the acoustic stage's last
+   checkpoint (the acoustic modules bitwise), on through duration; a resume
+   from the oldest kept textual checkpoint that ends with textual. One fp32
+   step of each stage with the parity switches on the card against the CPU
+   from the same weights (B=2, 1 s; metrics 1e-3 relative, each trained
+   module's weights within 0.1 of the step's move, L2; see
+   ``CARD_CPU_*``). 20 bf16 steps of each stage on one fixed batch
    (acoustic and textual B = 16, duration B = 32; metrics finite, lr
    multipliers in [0.01, 4]; the acoustic mel, the textual pitch + energy
    and the duration class cross entropy falling by the margins of
@@ -154,10 +155,27 @@ Phases (any failure exits non-zero):
    its plan at B = 16 (at least one OOM, each lowering the bin by the 0.9
    rule, the saved table at the lowered size, finite metrics, the peak
    under the cap, only the steps that ran counted);
-11. print the synthesis, front-end, acoustic, later-stage, recipe,
-   ringformer and audiobook summary lines, the ``kernels`` JSON line
-   (``launches``: the audiobook ``train-align``'s; ``launches_by_path``:
-   that, the front end's and phase 2's), then the device line last.
+11. ``import-torch`` on the port, in phase 6's directory: a seeded
+   checkpoint in the reference's accelerate layout at the full default
+   ``ModelConfig()`` (13 ``.bin`` files, ~250 MB; weight norm on the
+   generator blocks' convs, spectral norm on the style encoders' convs,
+   BatchNorm running statistics at the conformer, the waveform
+   discriminator and the aligner; the F0 head's bias at 150 Hz) imported
+   through the CLI (a ``duration`` checkpoint with ``imported_weights`` and
+   the affine norm, the aligner beside it; every leaf bitwise the tree of
+   ``import_torch_checkpoint``; seconds, MB); ``convert`` (every leaf
+   bitwise), ``voicepack`` static on the train split (styles card vs CPU,
+   1e-4 of each style's largest magnitude: the encoders without spectral
+   norm) and ``speak`` of the synthesis phase's 8 lines from it (as phase 8
+   checks them: finite, non-silent, both paths, RTF at B = 1); the card
+   against the CPU on the 60-token line as in phase 5; the 510-token
+   acoustic call traced (``chiprun_out/profile_imported_speak.json``); the
+   CTC counts zeroed before and 0 after;
+12. print the synthesis, front-end, acoustic, later-stage, recipe,
+   ringformer, audiobook and imported summary lines, the ``kernels`` JSON
+   line (``launches``: the audiobook ``train-align``'s; ``launches_by_path``:
+   that, the front end's, phase 2's and the imported voice's), then the
+   device line last.
 
 Tolerances: the kernels carry the trellis as float-float pairs and
 normalise gamma per frame (see csrc/ctc.cu), so they are held against the
@@ -1703,7 +1721,7 @@ def phase_front_end(torch, work: Path, card: str):
 # at the clips' 440-frame bin: acoustic (probe_batch_max 16) B = 8, so
 # 160 train clips give 20 steps per epoch; textual and duration (32, the
 # JAX defaults) B = 17, 9 steps per epoch
-ACOUSTIC_EPOCHS = 2
+ACOUSTIC_EPOCHS = 1
 ACOUSTIC_PROBE_BATCH_MAX = 16
 # training_plan.textual and .duration, written out in full: the JAX
 # defaults but for the epochs
@@ -1852,40 +1870,64 @@ def span_ratios(torch, full, other, start, names):
     return ratios
 
 
-def compare_runs(torch, full, other, out_full, out_other, first_stage, start):
-    """``other`` (resumed or restarted at ``first_stage``) against the
-    uninterrupted run: the same batches, its metrics within the resume
-    tolerance, and at each stage's last checkpoint the stage's trained
-    modules within 0.05 of their move since ``start`` (the checkpoint the
-    other run began from; for a stage after it, the stage's own start)."""
+def compare_runs(torch, full, other, out_full, out_other, first_stage, start,
+                 last_stage="duration"):
+    """``other`` (resumed or restarted at ``first_stage``, trained through
+    ``last_stage``) against the uninterrupted run: the same batches, its
+    metrics within the resume tolerance, and at each of those stages' last
+    checkpoint the stage's trained modules within 0.05 of their move since
+    ``start`` (the checkpoint the other run began from; for a stage after it,
+    the stage's own start)."""
     from stylish_tts_torch.models import STAGE_DISCRIMINATORS, STAGE_TRAIN_MODELS
 
+    at, span = stage_runs(full, STAGES)[last_stage]
+    end = at + span  # the uninterrupted run's row after last_stage's last step
     n = len(other.step_metrics)
-    ref = full.step_metrics[-n:]
+    ref = full.step_metrics[end - n: end]
     rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
               for a, b in zip(other.step_metrics, ref) for k in b)
     ratios = {}
-    for stage in STAGES[STAGES.index(first_stage):]:
+    for stage in STAGES[STAGES.index(first_stage): STAGES.index(last_stage) + 1]:
         last = checkpoint_dirs(out_full / stage)[-1]
         names = STAGE_TRAIN_MODELS[stage] + STAGE_DISCRIMINATORS[stage]
         ratios.update({f"{stage}/{k}": v for k, v in span_ratios(
             torch, saved_models(torch, out_full / stage / last),
             saved_models(torch, out_other / stage / last), start, names).items()})
         start = saved_models(torch, out_full / stage / last)
-    if (other.batches != full.batches[-n:] or not 0 < n < len(full.step_metrics)
+    same = other.batches == full.batches[end - n: end]
+    if (not same or not 0 < n < end
             or rel > ACOUSTIC_RESUME_RTOL or max(ratios.values()) > WEIGHT_SPAN_RTOL):
         fail(f"{out_other.name} against the uninterrupted run: {n} steps, same batches "
-             f"{other.batches == full.batches[-n:]}, metric rel err {rel:.3e} (<= "
+             f"{same}, metric rel err {rel:.3e} (<= "
              f"{ACOUSTIC_RESUME_RTOL}), weights/move {ratios} (<= {WEIGHT_SPAN_RTOL})")
     return n, rel, ratios
+
+
+def config_until(cfg: Path, last_stage: str) -> Path:
+    """``cfg`` for a run held against the uninterrupted one: every stage
+    after ``last_stage`` at 0 epochs, so that it ends with the stages it
+    checks (their samplers, plans and lr schedules are the uninterrupted
+    run's), and checkpoints only at each stage's end and no validation:
+    neither is compared, and validation draws from a generator of its own,
+    not from the state's."""
+    import yaml
+
+    doc = yaml.safe_load(cfg.read_text(encoding="utf-8"))
+    for stage in STAGES[STAGES.index(last_stage) + 1:]:
+        doc["training_plan"][stage]["epochs"] = 0
+    doc["training"]["save_interval"] = doc["training"]["val_interval"] = 10_000
+    out = cfg.with_name(f"{cfg.stem}_until_{last_stage}.yml")
+    out.write_text(yaml.safe_dump(doc), encoding="utf-8")
+    return out
 
 
 def acoustic_stage(torch, data, work):
     """``train --stage acoustic`` through the CLI: acoustic, then textual,
     then duration, validated and checkpointed; the frozen modules held
     bitwise across each hand-off. Then against that run: a resume inside
-    acoustic, a start of ``--stage textual`` from the acoustic stage's last
-    checkpoint, and a resume inside textual."""
+    acoustic that ends with acoustic, a start of ``--stage textual`` from the
+    acoustic stage's last checkpoint that runs on through duration, and a
+    resume inside textual that ends with textual."""
     import numpy as np
 
     from stylish_tts_torch.models import STAGE_DISCRIMINATORS, STAGE_TRAIN_MODELS
@@ -1941,16 +1983,17 @@ def acoustic_stage(torch, data, work):
         f"CTC launches {launches}; frozen modules bitwise across both hand-offs")
 
     a_names = per_stage["acoustic"]["checkpoints"]
-    resumed, r_wall, _ = stage_train(torch, cfg, model_cfg, work / "acoustic_resumed",
-                                     "acoustic", "--checkpoint",
+    resumed, r_wall, _ = stage_train(torch, config_until(cfg, "acoustic"), model_cfg,
+                                     work / "acoustic_resumed", "acoustic", "--checkpoint",
                                      str(out / "acoustic" / a_names[0]))
     r_n, r_rel, r_ratios = compare_runs(
         torch, trainer, resumed, out, work / "acoustic_resumed", "acoustic",
-        saved_models(torch, out / "acoustic" / a_names[0]))
-    log(f"resume from acoustic/{a_names[0]}: {r_n} steps in {r_wall:.1f} s through the "
-        f"three stages; metric rel err {r_rel:.2e}; weight error / move {r_ratios}")
+        saved_models(torch, out / "acoustic" / a_names[0]), last_stage="acoustic")
+    log(f"resume from acoustic/{a_names[0]}: {r_n} acoustic steps in {r_wall:.1f} s; "
+        f"metric rel err {r_rel:.2e}; weight error / move {r_ratios}")
 
-    restarted, s_wall, _ = stage_train(torch, cfg, model_cfg, work / "textual_started",
+    restarted, s_wall, _ = stage_train(torch, config_until(cfg, "duration"), model_cfg,
+                                       work / "textual_started",
                                        "textual", "--checkpoint",
                                        str(out / "acoustic" / last["acoustic"]))
     textual_start = saved_models(torch, work / "textual_started" / "textual"
@@ -1968,14 +2011,14 @@ def acoustic_stage(torch, data, work):
         f"error / move {s_ratios}")
 
     t_names = per_stage["textual"]["checkpoints"]
-    t_resumed, t_wall, _ = stage_train(torch, cfg, model_cfg, work / "textual_resumed",
-                                       "textual", "--checkpoint",
+    t_resumed, t_wall, _ = stage_train(torch, config_until(cfg, "textual"), model_cfg,
+                                       work / "textual_resumed", "textual", "--checkpoint",
                                        str(out / "textual" / t_names[0]))
     t_n, t_rel, t_ratios = compare_runs(
         torch, trainer, t_resumed, out, work / "textual_resumed", "textual",
-        saved_models(torch, out / "textual" / t_names[0]))
-    log(f"resume from textual/{t_names[0]}: {t_n} steps in {t_wall:.1f} s; metric rel "
-        f"err {t_rel:.2e}; weight error / move {t_ratios}")
+        saved_models(torch, out / "textual" / t_names[0]), last_stage="textual")
+    log(f"resume from textual/{t_names[0]}: {t_n} textual steps in {t_wall:.1f} s; metric "
+        f"rel err {t_rel:.2e}; weight error / move {t_ratios}")
     acoustic_rows = trainer.step_metrics[: per_stage["acoustic"]["steps"]]
     return trainer, {"wall_s": wall, "steps": per_stage["acoustic"]["steps"],
                      "B": per_stage["acoustic"]["B"], "ctc_launches": launches,
@@ -2551,11 +2594,8 @@ def recipe_convert(torch, work, ckpt, mc=None):
 def recipe_voicepack(torch, data, work, ckpt):
     """``voicepack`` and ``voicepack --dynamic`` on the train split; the
     styles of one batch of 8 on the card against the CPU; its time."""
-    import numpy as np
-
     from stylish_tts_torch.config import ModelConfig
-    from stylish_tts_torch.trainer.checkpoint import load_stage_models
-    from stylish_tts_torch.tts.voicepack import encode_all_styles, load_voicepack
+    from stylish_tts_torch.tts.voicepack import load_voicepack
 
     args = ["--config", str(work / "acoustic.yml"), "--model-config",
             str(work / "acoustic_model.yml"), "--checkpoint", str(ckpt)]
@@ -2569,7 +2609,23 @@ def recipe_voicepack(torch, data, work, ckpt):
         fail(f"voicepacks: {pack['kind']} {pack['speech'].shape}, {dyn['kind']} "
              f"{dyn['embedding'].shape} for {n} segments")
 
-    mc = ModelConfig()
+    errs, batch_ms = styles_card_vs_cpu(torch, data, ckpt, ModelConfig(), styles)
+    log(f"voicepack: {n} segments in {seconds:.2f} s (dynamic {dyn_seconds:.2f} s); a batch "
+        f"of {RECIPE_BATCH} {batch_ms:.2f} ms; card vs CPU {errs}")
+    return static, {"seconds": seconds, "dynamic_seconds": dyn_seconds, "segments": n,
+                    "card_vs_cpu": errs, "batch_ms": batch_ms}
+
+
+def styles_card_vs_cpu(torch, data, ckpt, mc, styles):
+    """The styles of the first RECIPE_BATCH train clips from the checkpoint's
+    encoders (model config ``mc``) on the card against the CPU, and the
+    ``voicepack`` command's (``styles``) against the CPU: each within
+    STYLE_TOL of its largest magnitude; the card's batch ms."""
+    import numpy as np
+
+    from stylish_tts_torch.trainer.checkpoint import load_stage_models
+    from stylish_tts_torch.tts.voicepack import encode_all_styles
+
     ds = first_clips(data, RECIPE_BATCH, pitch_path="pitch.safetensors")
     out = {}
     for device in ("cuda", "cpu"):
@@ -2589,13 +2645,10 @@ def recipe_voicepack(torch, data, work, ckpt):
              f"{errs} of the largest magnitude (<= {STYLE_TOL})")
     batch_ms = median_ms(torch, lambda: encode_all_styles(ds, card_models, norm, mc),
                          n=N_FRONT_TIMED, warmup=1, sleep=False)
-    log(f"voicepack: {n} segments in {seconds:.2f} s (dynamic {dyn_seconds:.2f} s); a batch "
-        f"of {RECIPE_BATCH} {batch_ms:.2f} ms; card vs CPU {errs}")
-    return static, {"seconds": seconds, "dynamic_seconds": dyn_seconds, "segments": n,
-                    "card_vs_cpu": errs, "batch_ms": batch_ms}
+    return errs, batch_ms
 
 
-def recipe_speak(torch, work, pkg_dir, voicepack):
+def recipe_speak(torch, work, pkg_dir, voicepack, voice="trained"):
     """``speak`` from the exported package and voicepack on the synthesis
     phase's 8 lines: finite, non-silent. Per line, the two-phase path is as
     long as the predicted durations (``durations``, rounded) times the hop,
@@ -2624,7 +2677,7 @@ def recipe_speak(torch, work, pkg_dir, voicepack):
     wav = read_wav(str(wav_path), pkg.mc.sample_rate)
     rms = float(np.sqrt(np.mean(np.square(wav))))
     if not np.isfinite(wav).all() or rms < 1e-3:
-        fail(f"speak from the trained voice: rms {rms:.2e}, finite "
+        fail(f"speak from the {voice} voice: rms {rms:.2e}, finite "
              f"{bool(np.isfinite(wav).all())}")
     wall = {"fused": 0.0, "two_phase": 0.0}
     lengths = {"fused": [], "two_phase": [], "predicted": []}
@@ -2646,13 +2699,13 @@ def recipe_speak(torch, work, pkg_dir, voicepack):
     if lengths["two_phase"] != lengths["predicted"] \
             or any(f > t for f, t in zip(lengths["fused"], lengths["two_phase"])) \
             or wav.shape[0] != sum(lengths["fused"]):
-        fail(f"speak from the trained voice: {wav.shape[0]} samples; per line fused "
+        fail(f"speak from the {voice} voice: {wav.shape[0]} samples; per line fused "
              f"{lengths['fused']}, two-phase {lengths['two_phase']}, predicted "
              f"{lengths['predicted']}")
     squeezed = sum(f < t for f, t in zip(lengths["fused"], lengths["two_phase"]))
     audio_s = {k: sum(v) / pkg.mc.sample_rate for k, v in lengths.items()}
     rtf = {k: wall[k] / audio_s[k] for k in wall}
-    log(f"speak from the trained voice: {wav.shape[0] / pkg.mc.sample_rate:.2f} s of audio "
+    log(f"speak from the {voice} voice: {wav.shape[0] / pkg.mc.sample_rate:.2f} s of audio "
         f"({squeezed} of {len(lines)} lines squeezed into their bucket; two-phase "
         f"{audio_s['two_phase']:.2f} s), rms {rms:.4f}, {seconds:.2f} s; RTF at B=1 fused "
         f"{rtf['fused']:.5f}, two-phase {rtf['two_phase']:.5f}")
@@ -3547,6 +3600,119 @@ def phase_audiobook(torch, work: Path, card: str):
 # ---------------------------------------------------------------- main
 
 
+# ---------------------------------------------------------------- phase 11
+
+# import-torch: a seeded accelerate checkpoint in the reference layout at the
+# full ModelConfig() (weight norm, spectral norm and BatchNorm sites; the F0
+# head's bias at F0_BIAS_HZ, as phase 5's voice), imported, exported and
+# spoken; on phase 6's corpus, in its directory
+IMPORT_SEED = 5
+
+
+def imported_checkpoint(torch, root: Path, cfg: Path, model_cfg: Path):
+    """The reference checkpoint written and ``import-torch`` through the CLI:
+    a ``duration`` checkpoint with ``imported_weights`` and the affine norm in
+    its model config, every leaf of its twelve modules and of the aligner
+    beside it bitwise the tree that ``import_torch_checkpoint`` returns for
+    the same files; seconds and MB."""
+    import numpy as np
+    from safetensors.numpy import load_file
+
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.convert.checkpoint_import import import_torch_checkpoint
+    from stylish_tts_torch.convert.from_jax import flatten, module_to_jax_flat
+    from stylish_tts_torch.convert.reference_layout import (
+        reference_state_dicts, write_accelerate_checkpoint)
+    from stylish_tts_torch.models import build_models, build_text_aligner
+    from stylish_tts_torch.trainer.checkpoint import ALIGNER_FILE, STATE_FILE, read_manifest
+    from stylish_tts_torch.utils.params_io import load_text_aligner_safetensors
+
+    t0 = time.time()
+    sds, _ = reference_state_dicts(ModelConfig(), IMPORT_SEED)
+    sds["pitch_energy_predictor"]["F0_proj.bias"][:] = F0_BIAS_HZ
+    paths = write_accelerate_checkpoint(str(root / "reference"), sds)
+    write_s = time.time() - t0
+    reference_mb = sum(Path(p).stat().st_size for p in paths) / 1e6
+    ckpt, import_s = cli(torch, "import-torch", "--config", str(cfg), "--model-config",
+                         str(model_cfg), "--checkpoint", str(root / "reference"), "--out",
+                         str(root / "out"), device=False)
+    ckpt = Path(ckpt)
+    mc = ModelConfig.model_validate_json((ckpt / "model_config.json").read_text(
+        encoding="utf-8"))
+    if (read_manifest(str(ckpt)).stage != "duration" or not mc.imported_weights
+            or mc.generator.norm_mode != "affine"):
+        fail(f"import-torch wrote stage {read_manifest(str(ckpt)).stage}, imported_weights "
+             f"{mc.imported_weights}, norm_mode {mc.generator.norm_mode}")
+    params = import_torch_checkpoint(str(root / "reference"), ModelConfig())
+    skeleton = build_models(mc)
+    got = {name: module_to_jax_flat(skeleton[name], sd)
+           for name, sd in saved_models(torch, ckpt).items()}
+    got["text_aligner"] = load_file(str(ckpt / ALIGNER_FILE))
+    want = {name: {f"params/{k}": v for k, v in flatten(params[name]["params"]).items()}
+            for name in params}
+    differ = [f"{name}/{k}" for name in want for k, v in want[name].items()
+              if not np.array_equal(got.get(name, {}).get(k), v)]
+    leaves = sum(len(v) for v in want.values())
+    if set(got) != set(want) or differ or leaves != sum(len(v) for v in got.values()):
+        fail(f"import-torch: modules {sorted(got)}, {len(differ)} of {leaves} leaves differ "
+             f"from import_torch_checkpoint's ({differ[:5]})")
+    load_text_aligner_safetensors(str(ckpt / ALIGNER_FILE), build_text_aligner(mc))
+    checkpoint_mb = sum(p.stat().st_size for p in (ckpt / STATE_FILE, ckpt / ALIGNER_FILE)) / 1e6
+    n_params = sum(int(np.prod(v.shape)) for tree in want.values() for v in tree.values())
+    log(f"import-torch: reference checkpoint {reference_mb:.1f} MB written in {write_s:.2f} s; "
+        f"imported in {import_s:.2f} s ({n_params:,} parameters); {leaves} leaves of 13 "
+        f"modules bitwise; checkpoint {checkpoint_mb:.1f} MB")
+    return ckpt, mc, {"write_s": write_s, "reference_mb": reference_mb, "import_s": import_s,
+                      "parameters": n_params, "leaves_bitwise": leaves,
+                      "checkpoint_mb": checkpoint_mb}
+
+
+def phase_imported(torch, work: Path, card: str):
+    """``import-torch`` of a seeded reference checkpoint at the full
+    ``ModelConfig()``, then ``convert`` (every leaf bitwise), ``voicepack``
+    (static; the styles card vs CPU) and ``speak`` of the 8 lines (as phase
+    8 holds them), the card against the CPU on the 60-token line (as phase
+    5), and the 510-token acoustic call traced
+    (``chiprun_out/profile_imported_speak.json``); the CTC counts zeroed
+    before and read after (0: nothing here runs the CTC)."""
+    from stylish_tts_torch.export.package import InferencePackage
+    from stylish_tts_torch.ops import ctc_cuda
+    from stylish_tts_torch.tts.voicepack import load_voicepack
+
+    for name in ctc_cuda.LAUNCHES:
+        ctc_cuda.LAUNCHES[name] = 0
+    t0 = time.time()
+    data, root = work / "data", work / "imported"
+    root.mkdir()
+    cfg, model_cfg = acoustic_configs(data, root)
+    ckpt, mc, report = imported_checkpoint(torch, root, cfg, model_cfg)
+    pkg_dir, report["convert"] = recipe_convert(torch, root, ckpt, mc)
+    voicepack = root / "voicepack.safetensors"
+    styles, report["voicepack_s"] = cli(torch, "voicepack", "--config", str(cfg),
+                                        "--model-config", str(model_cfg), "--checkpoint",
+                                        str(ckpt), "--out", str(voicepack))
+    report["styles_card_vs_cpu"], report["styles_batch_ms"] = styles_card_vs_cpu(
+        torch, data, ckpt, mc, styles)
+    log(f"voicepack of the imported voice: {styles['lengths'].shape[0]} segments in "
+        f"{report['voicepack_s']:.2f} s; card vs CPU {report['styles_card_vs_cpu']}")
+    report["speak"] = recipe_speak(torch, root, pkg_dir, voicepack, voice="imported")
+    pkg, pack = InferencePackage(str(pkg_dir), device="cuda"), load_voicepack(str(voicepack))
+    lines = speak_lines(2, SPEAK_TOKENS)
+    report["card_vs_cpu"] = phase_card_vs_cpu(torch, pkg, pack, root, lines[SHORT_LINE])
+    profile = phase_speak_profile(torch, pkg, pack, lines[-1])
+    profile["card"] = card
+    OUT.mkdir(exist_ok=True)
+    (OUT / "profile_imported_speak.json").write_text(json.dumps(profile, indent=1))
+    report["profile"] = {k: v for k, v in profile.items() if k != "top_kernels"}
+    report["ctc_launches"] = dict(ctc_cuda.LAUNCHES)
+    if any(report["ctc_launches"].values()):
+        fail(f"the imported voice's export and synthesis launched a CTC kernel: "
+             f"{report['ctc_launches']}")
+    report["wall_s"] = time.time() - t0
+    log(f"imported phase: {report['wall_s']:.1f} s")
+    return report
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         return child_main(sys.argv[1:])
@@ -3592,6 +3758,7 @@ def main() -> int:
         recipe = phase_recipe(torch, Path(tmp))
         ringformer = phase_ringformer(torch, Path(tmp), card)
         audiobook = phase_audiobook(torch, Path(tmp), card)
+        imported = phase_imported(torch, Path(tmp), card)
     front_launches = front["train_align"]["launches"]
     if not all(front_launches.values()):
         fail(f"a CTC kernel of the front end's train-align never launched: {front_launches}")
@@ -3612,7 +3779,8 @@ def main() -> int:
             "launches": book_launches[key],
             "launches_by_path": {"audiobook_train_align": book_launches[key],
                                  "front_end_train_align": front_launches[key],
-                                 "main_path_train_align": main_run["launches"][key]},
+                                 "main_path_train_align": main_run["launches"][key],
+                                 "imported_voice": imported["ctc_launches"][key]},
             "max_abs_err": max(checks["main_path"][err], audiobook["kernel_check"][err]),
             "ms": tm[key]["ms"], "plain_ms": tm[key]["plain_ms"],
             "bound_ms": tm[key]["bound_ms"], "bound_by": tm[key]["bound_by"],
@@ -3622,7 +3790,7 @@ def main() -> int:
               "timings": timings, "frame_fit": fit, "kernels": kernels,
               "front_end": front, "synthesis": synthesis, "acoustic": acoustic,
               "recipe": recipe, "ringformer": ringformer, "audiobook": audiobook,
-              "wall_s": time.time() - t_start}
+              "imported": imported, "wall_s": time.time() - t_start}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     log(f"total {time.time() - t_start:.1f} s; details in {OUT / 'chip_smoke.json'}")
@@ -3785,6 +3953,28 @@ def main() -> int:
         "oom_shrinks": oom["shrinks"], "oom_stale_skips": oom["stale_skips"],
         "oom_table": oom["table"], "oom_steps": oom["steps"],
         "oom_batch_sizes": oom["batch_sizes"]}}), flush=True)
+    im, ip, ic = imported, imported["profile"], imported["card_vs_cpu"]
+    print(json.dumps({"imported": {
+        "card": card, "wall_s": im["wall_s"], "parameters": im["parameters"],
+        "reference_mb": im["reference_mb"], "reference_write_s": im["write_s"],
+        "import_s": im["import_s"], "checkpoint_mb": im["checkpoint_mb"],
+        "leaves_bitwise": im["leaves_bitwise"], "convert_s": im["convert"]["seconds"],
+        "convert_leaves_bitwise": im["convert"]["leaves"], "voicepack_s": im["voicepack_s"],
+        "styles_card_vs_cpu": im["styles_card_vs_cpu"],
+        "styles_batch8_ms": im["styles_batch_ms"], "speak_s": im["speak"]["seconds"],
+        "speak_audio_s": im["speak"]["audio_s"], "speak_rms": im["speak"]["rms"],
+        "rtf_b1": im["speak"]["rtf_b1"], "rtf_b1_two_phase": im["speak"]["rtf_b1_two_phase"],
+        "speak_squeezed_lines": im["speak"]["squeezed_lines"],
+        "card_vs_cpu_duration_max_abs_err": ic["duration_max_abs_err"],
+        "card_vs_cpu_wave_max_abs_err": ic["wave_max_abs_err"],
+        "card_vs_cpu_wave_tol": ic["wave_tol"], "card_vs_cpu_wave_peak": ic["wave_peak"],
+        "profile_frames": ip["frame_bucket"], "profile_call_ms": ip["call_ms"],
+        "profile_device_ms": ip["device_ms"], "profile_busy_share": ip["busy_share"],
+        "profile_launches": ip["launches"],
+        "profile_groups_ms": {g: v["ms"] for g, v in ip["groups"].items()},
+        "random_weights_profile_device_ms": prof["device_ms"],
+        "random_weights_profile_launches": prof["launches"],
+        "ctc_launches": im["ctc_launches"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

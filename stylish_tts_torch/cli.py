@@ -5,12 +5,12 @@ Counterpart of ``stylish_tts_tpu/cli.py``; ported so far: ``pitch`` (YIN,
 or RMVPE from a local ``--rmvpe-weights`` file), ``train-align`` (with
 ``--checkpoint``), ``train --stage acoustic|textual|duration`` (with
 ``--checkpoint`` and ``--reset-stage``), ``slm-cache``, ``align``,
-``align-textgrid``, ``convert``, ``voicepack [--dynamic]``,
-``dataset-from-audiobook``, ``speak`` and ``prepare-book``.
+``align-textgrid``, ``import-torch``, ``convert``, ``voicepack
+[--dynamic]``, ``dataset-from-audiobook``, ``speak`` and ``prepare-book``.
 Every command that computes runs on ``--device cuda`` unless told
-``--device cpu``, and raises where CUDA is missing; ``convert``,
-``dataset-from-audiobook`` and ``prepare-book`` are file and text work on
-the CPU and take no device.
+``--device cpu``, and raises where CUDA is missing; ``import-torch``,
+``convert``, ``dataset-from-audiobook`` and ``prepare-book`` are file and
+text work on the CPU and take no device.
 """
 
 from __future__ import annotations
@@ -307,6 +307,42 @@ def slm_cache(config_path, model_config_path, out_dir, device):
     out_path = trainer.data_path(config.dataset.slm_path)
     write_slm_cache(out_path, cache)
     click.echo(f"wrote slm embeddings for {len(cache) - 1} segments to {out_path}")
+
+
+@train_cli.command("import-torch")
+@click.option("--config", "config_path", type=click.Path(exists=True))
+@click.option("--model-config", "model_config_path", type=click.Path(exists=True))
+@click.option("--checkpoint", required=True, type=click.Path(exists=True),
+              help="Reference accelerate save_state checkpoint directory")
+@click.option("--out", "out_dir", required=True, type=click.Path())
+def import_torch(config_path, model_config_path, checkpoint, out_dir):
+    """Import a trained PyTorch reference checkpoint (accelerate
+    save_state dir) into the port's checkpoint format: one checkpoint of
+    stage ``duration`` whose ``state.pt`` holds the twelve modules with
+    fresh optimizers, and the aligner beside it in the JAX flat layout
+    (``alignment_model.safetensors``). BatchNorm is folded to frozen
+    affine and weight/spectral norm into the kernels (see convert/), so
+    `convert`, `voicepack` and `speak` work on it directly. File work on
+    the CPU. Returns the checkpoint's path to callers that run the command
+    in-process."""
+    from .convert.checkpoint_import import import_torch_checkpoint, imported_models
+    from .trainer.checkpoint import ALIGNER_FILE, Manifest, save_checkpoint
+    from .trainer.normalization import NormalizationStats
+    from .trainer.state import create_stage_train_state
+    from .utils.params_io import save_text_aligner_safetensors
+
+    config, model_config = _load_configs(config_path, model_config_path)
+    params = import_torch_checkpoint(checkpoint, model_config)
+    models = imported_models(params, model_config)
+    aligner = models.pop("text_aligner")
+    state = create_stage_train_state(models, "cpu", stage="duration")
+    manifest = Manifest(stage="duration")  # a fully trained reference model
+    os.makedirs(out_dir, exist_ok=True)
+    path = save_checkpoint(out_dir, state, manifest, config, model_config,
+                           NormalizationStats())
+    save_text_aligner_safetensors(osp.join(path, ALIGNER_FILE), aligner)
+    click.echo(f"imported torch checkpoint -> {path}")
+    return path
 
 
 @train_cli.command("convert")

@@ -156,19 +156,22 @@ def flax_layout(module: nn.Module) -> Dict[str, Tuple[str, str]]:
     return out
 
 
-def _relayout(x: np.ndarray, kind: str, to_torch: bool) -> np.ndarray:
-    """flax <-> torch layout of one leaf; each rule but conv2d's is its own
-    inverse."""
-    x = np.asarray(x, dtype=np.float32)
+def _transposed(x: np.ndarray, kind: str, to_torch: bool) -> np.ndarray:
+    """flax <-> torch layout of one leaf, as a view; each rule but conv2d's
+    is its own inverse."""
     if kind == "conv2d":
-        x = x.transpose(3, 2, 0, 1) if to_torch else x.transpose(2, 3, 1, 0)
-    elif kind == "conv":
-        x = x.transpose(2, 1, 0)
-    elif kind == "dense":
-        x = x.T
-    elif kind == "channel":
-        x = x.transpose(0, 2, 1)
-    return np.array(x, order="C")
+        return x.transpose(3, 2, 0, 1) if to_torch else x.transpose(2, 3, 1, 0)
+    if kind == "conv":
+        return x.transpose(2, 1, 0)
+    if kind == "dense":
+        return x.T
+    if kind == "channel":
+        return x.transpose(0, 2, 1)
+    return x
+
+
+def _relayout(x: np.ndarray, kind: str, to_torch: bool) -> np.ndarray:
+    return np.array(_transposed(np.asarray(x, dtype=np.float32), kind, to_torch), order="C")
 
 
 def module_from_jax(module: nn.Module, params: Mapping) -> Dict[str, torch.Tensor]:
@@ -186,6 +189,18 @@ def module_from_jax(module: nn.Module, params: Mapping) -> Dict[str, torch.Tenso
         raise KeyError(f"{type(module).__name__}: flax leaves missing {sorted(missing)}, "
                        f"unmapped {sorted(flat)}")
     return sd
+
+
+def module_jax_shapes(module: nn.Module) -> Dict[str, Tuple[int, ...]]:
+    """The flat ``params/...`` leaf shapes of ``module``'s JAX counterpart,
+    read from its parameters' shapes alone (a module on the ``meta`` device
+    serves)."""
+    shapes = {}
+    for key, (path, kind) in flax_layout(module).items():
+        torch_shape = tuple(module.get_parameter(key).shape)
+        view = np.broadcast_to(np.float32(0), torch_shape)  # no copy
+        shapes[f"params/{path}"] = _transposed(view, kind, to_torch=False).shape
+    return shapes
 
 
 def module_to_jax_flat(module: nn.Module,

@@ -10,7 +10,10 @@ writes an orbax tree, which the port does not read). Resume semantics
 live in ``trainer/loop.py``: same stage -> fast-forward the sampler by
 ``current_step``; another stage -> fresh counters. Any later stage's
 checkpoint loads into ``StageTrainState``, also an acoustic one that holds
-only the acoustic stage's six modules (the rest keep their init).
+only the acoustic stage's six modules (the rest keep their init). A
+checkpoint of ``import-torch`` holds the twelve modules in ``state.pt``
+and the aligner beside it (``ALIGNER_FILE``), where the JAX orbax tree
+holds all thirteen.
 """
 
 from __future__ import annotations
@@ -29,6 +32,9 @@ from .normalization import NormalizationStats
 from .state import StageTrainState, TrainState
 
 STATE_FILE = "state.pt"
+# an imported checkpoint's aligner, beside ``state.pt`` (which holds the
+# twelve later-stage modules) in the JAX flat layout of train-align's output
+ALIGNER_FILE = "alignment_model.safetensors"
 
 
 @dataclass

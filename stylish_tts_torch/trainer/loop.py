@@ -48,8 +48,15 @@ are synced, and the first nonfinite one dumps the batch to
 the metrics reach the host once per ``log_interval``
 (``_metrics_to_host``).
 
+Each stage directory gets ``git_state.txt`` (the commit and the diff of the
+checkout, or the package version outside git) beside its copies of the two
+configs, and each validation the eval samples' log-mel figures (ground
+truth, prediction, signed difference) where TensorBoard and matplotlib are
+present.
+
 Runs eagerly on one device (the JAX ``n_devices`` is 1 here).
-A failing validation batch raises: the JAX loop logs and skips it.
+A failing validation batch raises, and so does a failing figure: the JAX
+loop logs and skips both.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ import hashlib
 import logging
 import os
 import os.path as osp
+import subprocess
 import time
 from typing import Dict, List, Optional
 
@@ -141,6 +149,28 @@ def select_validation_samples(paths: List[str], count: int, force: List[str]) ->
     rest = sorted((p for p in paths if p not in chosen),
                   key=lambda p: hashlib.blake2b(p.encode()).hexdigest())
     return (chosen + rest)[:count]
+
+
+def save_git_state(out_dir: str) -> None:
+    """Snapshot the checkout's git commit and diff into the stage dir
+    (reference utils.py:617-624 ``git_state.txt``); outside a git checkout,
+    the package version."""
+    repo = osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__))))
+    try:
+        commit = subprocess.run(
+            ["git", "-C", repo, "rev-parse", "HEAD"],
+            capture_output=True, text=True, check=True,
+        ).stdout.strip()
+        diff = subprocess.run(
+            ["git", "-C", repo, "diff"], capture_output=True, text=True,
+        ).stdout
+    except (OSError, subprocess.CalledProcessError):
+        from .. import __version__
+
+        commit, diff = f"version {__version__}", ""
+    os.makedirs(out_dir, exist_ok=True)
+    with open(osp.join(out_dir, "git_state.txt"), "w", encoding="utf-8") as f:
+        f.write(f"Git commit hash or version: {commit}\n\n{diff}")
 
 
 def setup_stage_logging(out_dir: str) -> None:
@@ -335,9 +365,11 @@ class Trainer:
             state.begin_stage(stage)
 
     def _open_stage(self, stage: str) -> str:
-        """The stage's directory, with its log file and config copies."""
+        """The stage's directory, with its log file, ``git_state.txt`` and
+        config copies."""
         out_dir = osp.join(self.base_out_dir, stage)
         setup_stage_logging(out_dir)
+        save_git_state(out_dir)
         for name, model_dump in (("config.json", self.config),
                                  ("model_config.json", self.mc)):
             with open(osp.join(out_dir, name), "w", encoding="utf-8") as f:
@@ -588,8 +620,8 @@ class Trainer:
         """The stage's validator (``validate.VALIDATORS``) over the val split
         at the planned batch sizes (a ragged bin re-chunked to B = 1); the
         logged metrics are the means of the batch means, and the eval
-        samples' predicted audio is written as wav files. Updates
-        ``manifest.best_loss``."""
+        samples' predicted audio is written as wav files, their log-mel
+        figures to TensorBoard. Updates ``manifest.best_loss``."""
         step = self.manifest.current_total_step
         sample_paths = set(select_validation_samples(
             [s.wav_path for s in val_ds.segments],
@@ -611,6 +643,7 @@ class Trainer:
                     if p in sample_paths:
                         self.writer.add_audio(f"eval/{p}", audio[bi].float().cpu().numpy(),
                                               step, self.mc.sample_rate)
+                        self._emit_mel_figures(p, batch.audio_gt[bi], audio[bi], step)
         if not metrics_acc:
             return {}
         avg = self._mean_of_batch_means(metrics_acc)
@@ -621,6 +654,25 @@ class Trainer:
         self.validations.append({"stage": stage, "step": step,
                                  "batches": len(metrics_acc), **avg})
         return avg
+
+    def _emit_mel_figures(self, path, audio_gt, audio, step):
+        """Log-mel spectrograms of one eval sample's ground truth and
+        prediction, and their signed difference (reference
+        stage.py:250-401), under ``eval/<path>/mel_{gt,pred,diff}``."""
+        from ..utils.plotting import plot_signed_difference_figure, plot_spectrogram_figure
+
+        to_mel = MelSpectrogram(
+            n_mels=self.mc.n_mels, n_fft=self.mc.n_fft, win_length=self.mc.win_length,
+            hop_length=self.mc.hop_length, sample_rate=self.mc.sample_rate)
+        with torch.no_grad():
+            gt, pr = (np.log(1e-5 + to_mel(torch.as_tensor(a, device=audio.device)[None]
+                                           .float()).cpu().numpy())[0]
+                      for a in (audio_gt, audio))
+        self.writer.add_figure(f"eval/{path}/mel_gt", plot_spectrogram_figure(gt, "GT"), step)
+        self.writer.add_figure(f"eval/{path}/mel_pred", plot_spectrogram_figure(pr, "pred"),
+                               step)
+        self.writer.add_figure(f"eval/{path}/mel_diff",
+                               plot_signed_difference_figure(gt, pr, "pred-GT"), step)
 
     @staticmethod
     def _mean_of_batch_means(metrics_acc) -> Dict[str, float]:

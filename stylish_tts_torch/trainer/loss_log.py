@@ -4,8 +4,8 @@ The port's ``stylish_tts_tpu/trainer/loss_log.py``: a weighted reporting
 total (``lr`` and the ``*_lr_mult`` diagnostics excluded), window means,
 logged and written to a SummaryWriter, or to a JSONL metrics file where
 ``torch.utils.tensorboard`` is missing. Eval audio goes to wav files under
-the stage directory (``samples/step_SSSSSSSSS/<segment>.wav``); figures are
-not written.
+the stage directory (``samples/step_SSSSSSSSS/<segment>.wav``), where the
+JAX writer adds it to TensorBoard; figures go to TensorBoard only.
 """
 
 from __future__ import annotations
@@ -59,6 +59,19 @@ class MetricsWriter:
         path = osp.join(folder, name)
         write_wav(path, np.asarray(audio, dtype=np.float32), sample_rate)
         return path
+
+    def add_figure(self, tag: str, figure, step: int) -> None:
+        """A matplotlib figure to TensorBoard (which closes it); None (no
+        matplotlib) is skipped, and without TensorBoard the figure is
+        closed unwritten."""
+        if figure is None:
+            return
+        if self._tb is not None:
+            self._tb.add_figure(tag, figure, step)
+        else:
+            import matplotlib.pyplot as plt
+
+            plt.close(figure)
 
     def close(self) -> None:
         if self._tb is not None:
