@@ -171,11 +171,37 @@ Phases (any failure exits non-zero):
    against the CPU on the 60-token line as in phase 5; the 510-token
    acoustic call traced (``chiprun_out/profile_imported_speak.json``); the
    CTC counts zeroed before and 0 after;
-12. print the synthesis, front-end, acoustic, later-stage, recipe,
-   ringformer, audiobook and imported summary lines, the ``kernels`` JSON
-   line (``launches``: the audiobook ``train-align``'s; ``launches_by_path``:
-   that, the front end's, phase 2's and the imported voice's), then the
-   device line last.
+12. data parallel (``stylish_tts_torch/parallel``), in phase 6's
+   directory: (a) world size 1 through NCCL (a file store, rank 0 of 1) at
+   the full ``ModelConfig()``: 6 alignment steps on the main path's batch (B
+   = 69) and 3 bf16 acoustic steps at B = 16 (slm on), losses, priors and
+   weights bitwise against the same steps without a process group
+   (deterministic cuDNN; a second run without one says whether the card
+   repeats itself), step times with and without the group, and the
+   collectives' cost (an NCCL all-reduce of each step's gradients, a host
+   flag); (b) two gloo ranks on the one card in two child processes
+   (``--dp-rank``; NCCL refuses two ranks on one device) against one
+   process on the same rows: one alignment step on 68 rows (34 a rank: the
+   CTC kernels launch in both, and each rank holds them against the plain
+   version at its shard's shape; dropout off), metrics 1e-6 relative,
+   priors 1e-5, the averaged gradient 1e-3 of its norm and the weights 1e-3
+   of the step's move (L2); one fp32 acoustic step on 8 (4 a rank; the
+   parity switches, an injected excitation, MRD 1, PyTorch's own
+   convolutions), metrics 1e-6, the TPRLS medians' values 1e-5, each
+   module's averaged gradient 1e-3 with the medians' gradient stopped on
+   both sides, the weights 0.1 of the move (AdamW's first step; see
+   ``dp_two_ranks``); (c) the bounds-checked CTC build (``ctc_checked``) in
+   a child (``--ctc-checked``): no assert; (d) ``train --stage acoustic
+   --profile`` through the CLI for 2 steps, its Chrome trace parsed and its
+   CUDA kernel events counted; (e) the analytic FLOPs of the B = 16
+   acoustic step (``utils/flops.py``; the sampled MRD as the mean of the
+   three), its achieved TFLOP/s and MFU against the dense bf16 peak;
+13. print the synthesis, front-end, acoustic, later-stage, recipe,
+   ringformer, audiobook, imported and data-parallel summary lines (a line
+   saying that no multi-GPU scaling number exists before the last), the
+   ``kernels`` JSON line (``launches``: the audiobook ``train-align``'s;
+   ``launches_by_path``: that, the front end's, phase 2's, the imported
+   voice's and the data-parallel phase's), then the device line last.
 
 Tolerances: the kernels carry the trellis as float-float pairs and
 normalise gamma per frame (see csrc/ctc.cu), so they are held against the
@@ -655,6 +681,42 @@ def check_trellis(torch, case):
     out["no_grad_launches"] = launched
     log(f"check no-grad forward: launches {launched}, same loss")
     return out
+
+
+# the U = 512 case of scripts/ctc_u512_repeat.py, repeated through the
+# bounds-checked build
+U512_SPEC = dict(b=4, t=1100, c=179, u=512, label_lengths=[512, 400, 300, 511],
+                 input_lengths=[1100, 1000, 900, 1100])
+U512_SEEDS = (102, 103, 104)
+U512_REPEATS = 20
+
+
+def ctc_checked(torch, main_shape) -> dict:
+    """Both kernels of the bounds-checked build (``ctc_cuda.bounds_checked``:
+    a device assert on every shared-memory and global index): the U = 512
+    case ``U512_REPEATS`` times on each of ``U512_SEEDS``, synchronised after
+    each, then ``phase_check``'s cases (the ragged ones, B=32/T=400/U=120,
+    U = 512, the main path's shape) against the plain version. A failed
+    assert ends this process's CUDA context: run it in a process of its own
+    (``child``)."""
+    from stylish_tts_torch.ops import ctc_cuda
+
+    t0 = time.time()
+    with ctc_cuda.bounds_checked():
+        build_s = time.time() - t0
+        t0 = time.time()
+        for _ in range(U512_REPEATS):
+            for seed in U512_SEEDS:
+                run_kernel(torch, make_case(torch, seed=seed, **U512_SPEC))
+                torch.cuda.synchronize()
+        repeat_s = time.time() - t0
+        checks = phase_check(torch, main_shape)
+        torch.cuda.synchronize()
+    log(f"bounds-checked CTC build: built in {build_s:.1f} s; U = 512 x "
+        f"{U512_REPEATS * len(U512_SEEDS)} in {repeat_s:.1f} s and the checks' cases, "
+        f"no assert")
+    return {"build_s": build_s, "u512_runs": U512_REPEATS * len(U512_SEEDS),
+            "u512_s": repeat_s, "checks": checks, "launches": dict(ctc_cuda.LAUNCHES)}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -3504,8 +3566,10 @@ def child(torch, flag: str, *args) -> dict:
 
 
 def child_main(argv) -> int:
-    """``chip_smoke.py --remat-probe 0|1 DATA OUT`` or ``--oom-run WORK CAP
-    OUT``: one measurement in this process, its result written to OUT."""
+    """``chip_smoke.py --remat-probe 0|1 DATA OUT``, ``--oom-run WORK CAP
+    OUT``, ``--ctc-checked B T C U OUT`` or ``--dp-rank RANK STORE BATCH
+    DATA OUT``: one measurement in this process, its result written to
+    OUT."""
     torch = require_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3514,6 +3578,10 @@ def child_main(argv) -> int:
         result = remat_probe(torch, Path(args[1]), args[0] == "1")
     elif flag == "--oom-run":
         result = oom_run(torch, Path(args[0]), int(args[1]))
+    elif flag == "--ctc-checked":
+        result = ctc_checked(torch, tuple(map(int, args)))
+    elif flag == "--dp-rank":
+        result = dp_rank_main(torch, int(args[0]), args[1], args[2], args[3])
     else:
         fail(f"unknown flag {flag}")
     Path(out).write_text(json.dumps(result), encoding="utf-8")
@@ -3713,6 +3781,533 @@ def phase_imported(torch, work: Path, card: str):
     return report
 
 
+# ---------------------------------------------------------------- phase 12
+
+# data parallel (``stylish_tts_torch/parallel``): world size 1 through NCCL
+# bitwise against no process group; two gloo ranks on the one card (NCCL
+# refuses two ranks on one device) against one process on the same rows;
+# the bounds-checked CTC build; ``train --profile``; the FLOP count
+DP_ALIGN_STEPS = 6
+DP_ACOUSTIC_STEPS = 3
+DP_ALIGN_B = 68  # global, 34 rows a rank
+DP_ACOUSTIC_B = 8  # global, 4 rows a rank, fp32
+DP_FORCED = 1
+DP_METRIC_RTOL = 1e-6  # measured on an H100: 1.1e-7
+DP_PRIOR_ATOL = 1e-5
+DP_WEIGHT_RTOL = 1e-3  # L2 error of a module's weights over the step's move
+# the acoustic step's weights: AdamW's first step moves an element by
+# lr x sign(g), and the elements whose gradient is float noise (a conv bias
+# before a norm) take either sign (the card-vs-CPU tolerance of phase 7)
+DP_ACOUSTIC_WEIGHT_RTOL = CARD_CPU_WEIGHT_RTOL
+DP_GRAD_RTOL = 1e-3  # L2 error of a module's averaged gradient over its norm
+# the TPRLS medians' values (scores of O(0.1-1)): a neighbour swap moves one
+# by ~1e-6, a rank's own median would miss the global one by ~5e-4
+DP_MEDIAN_ATOL = 1e-5
+H100_BF16_DENSE_FLOP_PER_S = 989e12
+
+
+def _snapshot(torch, modules):
+    return {n: {k: v.detach().clone() for k, v in m.state_dict().items()}
+            for n, m in modules.items()}
+
+
+def _record_grads(steps_mod):
+    """Patch ``steps.apply_module_update`` to keep each module's averaged
+    gradient (as AdamW gets it); returns the dict it fills and the undo."""
+    grads, real = {}, steps_mod.apply_module_update
+
+    def update(module, optimizer, lr, finite=None):
+        grads[id(module)] = [p.grad.detach().clone() for p in module.parameters()
+                             if p.grad is not None]
+        return real(module, optimizer, lr, finite)
+
+    steps_mod.apply_module_update = update
+    return grads, lambda: setattr(steps_mod, "apply_module_update", real)
+
+
+def dp_align_run(torch, batch, n_steps, rows=None, dropout=True):
+    """``n_steps`` alignment steps at the full ``ModelConfig()`` from seed 0
+    on ``batch`` (its ``rows``: this rank's), the priors refreshed halfway,
+    the aligner's dropout off unless ``dropout`` (each rank draws its own):
+    losses, the priors' accumulators and priors, the weights before and
+    after, the first step's averaged gradient, each step's ms and its CTC
+    launches."""
+    from stylish_tts_torch.config import Config, ModelConfig
+    from stylish_tts_torch.models import build_text_aligner
+    from stylish_tts_torch.ops import ctc_cuda
+    from stylish_tts_torch.trainer import steps as steps_mod
+    from stylish_tts_torch.trainer.normalization import NormalizationStats
+    from stylish_tts_torch.trainer.state import create_train_state
+
+    if rows is not None:
+        batch = type(batch)(*(None if x is None else x[rows] for x in batch))
+    mc = ModelConfig()
+    torch.manual_seed(0)
+    state = create_train_state(build_text_aligner(mc), mc.text_encoder.tokens + 1, "cuda")
+    if not dropout:
+        state.aligner.dropout = 0.0
+    ctx = steps_mod.StepContext(mc, Config().loss_weight.model_dump(), NormalizationStats(),
+                                stage_steps=1000, base_lr=1e-4)
+    step = steps_mod.make_alignment_step(ctx)
+    before = _snapshot(torch, {"text_aligner": state.aligner})
+    grads, undo = _record_grads(steps_mod)
+    launches = dict(ctc_cuda.LAUNCHES)
+    losses, ms, first_grad = [], [], None
+    try:
+        for i in range(n_steps):
+            if i == n_steps // 2 and i:
+                state = steps_mod.finish_alignment_epoch(ctx, state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(state, batch)["align_loss"].detach().clone())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            first_grad = first_grad or grads.get(id(state.aligner))
+    finally:
+        undo()
+    return {"losses": torch.stack(losses).cpu(), "step_ms": ms, "before": before,
+            "after": _snapshot(torch, {"text_aligner": state.aligner}),
+            "grads": {"text_aligner": [g.cpu() for g in first_grad]},
+            "priors": {k: getattr(state, k).detach().cpu().clone()
+                       for k in ("log_priors_sum", "prior_count", "log_priors")},
+            "launches": {k: ctc_cuda.LAUNCHES[k] - launches[k] for k in launches}}
+
+
+def dp_acoustic_run(torch, data, b, n_steps, prior=None, rows=None):
+    """``n_steps`` acoustic steps from seed 0 on ``b`` corpus clips (its
+    ``rows``): bf16 with the slm term (as phase 7 times the step), or, with
+    an injected excitation ``prior`` (B, S), fp32 with the parity switches
+    and MRD ``DP_FORCED`` on PyTorch's own convolutions (cuDNN off: they
+    compute each row alone, where cuDNN's choice of algorithm follows the
+    batch), the TPRLS medians' gradient stopped (see ``dp_two_ranks``);
+    metrics, the four stepped modules' weights before and after, the first
+    step's averaged gradients, the TPRLS medians' values, each step's ms."""
+    from stylish_tts_torch import losses
+    from stylish_tts_torch.config import Config, ModelConfig
+    from stylish_tts_torch.models.slm import random_wavlm, wavlm_loss
+    from stylish_tts_torch.trainer import steps as steps_mod
+    from stylish_tts_torch.trainer.normalization import NormalizationStats
+
+    fp32 = prior is not None
+    batch = acoustic_batch(torch, data, b)
+    if rows is not None:
+        batch = type(batch)(*(None if x is None else x[rows] for x in batch))
+        prior = None if prior is None else prior[rows]
+    batch = steps_mod.batch_to_device(batch, "cuda")
+    mc = ModelConfig()
+    state = stage_state(torch, mc, "cuda")
+    names = ("speech_predictor", "speech_style_encoder", f"mrd{DP_FORCED}", "disc")
+    if fp32:
+        ctx = steps_mod.StepContext(mc, Config().loss_weight.model_dump(), NormalizationStats(),
+                                    stage_steps=10_000, parity_deterministic=True,
+                                    parity_prior=prior.cuda(), forced_disc_index=DP_FORCED)
+    else:
+        state.wavlm = random_wavlm(0).cuda().eval().requires_grad_(False)
+        ctx = steps_mod.StepContext(mc, Config().loss_weight.model_dump(), NormalizationStats(),
+                                    stage_steps=10_000, slm_loss_fn=wavlm_loss,
+                                    mixed_precision=True)
+    step = steps_mod.make_acoustic_step(ctx)
+    before = _snapshot(torch, {n: state.models[n] for n in names}) if fp32 else None
+    grads, undo = _record_grads(steps_mod)
+    medians, real_median = [], losses._median_lower
+
+    def median(x):
+        m = real_median(x)
+        medians.append(float(m))
+        return m.detach()
+
+    losses._median_lower = median
+    torch.backends.cudnn.enabled = not fp32
+    metrics, ms, first = [], [], None
+    try:
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if first is None:
+                first = {n: [g.cpu() for g in grads[id(state.models[n])]] for n in names
+                         if id(state.models[n]) in grads}
+    finally:
+        undo()
+        losses._median_lower = real_median
+        torch.backends.cudnn.enabled = True
+    out = {"metrics": metrics, "step_ms": ms, "grads": first, "state": state, "batch": batch,
+           "ctx": ctx, "medians": medians}
+    if fp32:
+        out.update(before=before, after=_snapshot(torch, {n: state.models[n] for n in names}))
+    return out
+
+
+def _weights_equal(torch, a, b) -> bool:
+    return all(torch.equal(a[n][k], b[n][k]) for n in a for k in a[n])
+
+
+def dp_world_one(torch, align_batch, data, work: Path) -> dict:
+    """(a) World size 1 through NCCL (a file store, rank 0 of 1) against no
+    process group: ``DP_ALIGN_STEPS`` alignment steps on the main path's
+    batch and ``DP_ACOUSTIC_STEPS`` bf16 acoustic steps at B = 16, losses,
+    priors and weights bitwise, with deterministic cuDNN; each without a
+    group a second time, which says whether the card repeats itself. The
+    collectives' cost: one NCCL all-reduce of each step's gradients and one
+    flag on the host group, at world size 1."""
+    import torch.distributed as dist
+
+    from stylish_tts_torch import parallel
+    from stylish_tts_torch.parallel import mesh
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for name in ("no_group", "group", "no_group_again"):
+            if name == "group":
+                parallel.init_data_parallel(backend="nccl", rank=0, world_size=1,
+                                            init_method=f"file://{work / 'store_ws1'}",
+                                            device="cuda:0")
+            try:
+                align = dp_align_run(torch, align_batch, DP_ALIGN_STEPS)
+                acoustic = dp_acoustic_run(torch, data, ACOUSTIC_B, DP_ACOUSTIC_STEPS)
+                if name == "group":
+                    cost = {}
+                    for what, grads in (("align", align["grads"]["text_aligner"]),
+                                        ("acoustic", [g for n in ("speech_predictor",
+                                                                  "speech_style_encoder")
+                                                      for g in acoustic["grads"][n]])):
+                        flat = torch.cat([g.reshape(-1) for g in grads]).cuda()
+                        cost[f"{what}_grad_all_reduce_ms"] = median_ms(
+                            torch, lambda: dist.all_reduce(flat), n=10, sleep=False)
+                        cost[f"{what}_grad_elements"] = flat.numel()
+                    t0 = time.perf_counter()
+                    for _ in range(100):
+                        mesh._host_all_reduce([1.0], dist.ReduceOp.MIN)
+                    cost["host_flag_ms"] = (time.perf_counter() - t0) * 10
+            finally:
+                parallel.shutdown()
+            acoustic.update(weights=_snapshot(torch, acoustic["state"].models))
+            for k in ("state", "batch", "ctx"):
+                acoustic.pop(k)
+            runs[name] = {"align": align, "acoustic": acoustic}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same = {}
+    for other in ("group", "no_group_again"):
+        a, b = runs["no_group"], runs[other]
+        same[other] = {
+            "align_losses": torch.equal(a["align"]["losses"], b["align"]["losses"]),
+            "align_priors": all(torch.equal(a["align"]["priors"][k], b["align"]["priors"][k])
+                                for k in a["align"]["priors"]),
+            "align_weights": _weights_equal(torch, a["align"]["after"], b["align"]["after"]),
+            "acoustic_metrics": a["acoustic"]["metrics"] == b["acoustic"]["metrics"],
+            "acoustic_weights": _weights_equal(torch, a["acoustic"]["weights"],
+                                               b["acoustic"]["weights"])}
+    ms = {name: {"align_step_ms": statistics.median(r["align"]["step_ms"][1:]),
+                 "acoustic_step_ms": statistics.median(r["acoustic"]["step_ms"][1:])}
+          for name, r in runs.items()}
+    log(f"dp world size 1: bitwise with the group {same['group']}; a second run without "
+        f"{same['no_group_again']}; step ms {ms}; collectives {cost}")
+    if not all(same["group"].values()):
+        fail(f"world size 1 through NCCL is not bitwise the run without a group: {same}")
+    return {"bitwise": same, "step_ms": ms, "collectives_ws1": cost,
+            "align_launches": runs["group"]["align"]["launches"]}
+
+
+def children(torch, flag: str, arg_lists, timeout: int = 600) -> list:
+    """This script's ``flag`` in one child process per argument list, all at
+    once; returns their JSON results in order (``child`` for one)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_children_") as tmp:
+        outs = [Path(tmp) / f"result{i}.json" for i in range(len(arg_lists))]
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), flag,
+                                   *map(str, args), str(out)])
+                 for args, out in zip(arg_lists, outs)]
+        try:
+            codes = [p.wait(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(codes) or not all(o.is_file() for o in outs):
+            fail(f"children {flag} exited {codes}")
+        return [json.loads(o.read_text(encoding="utf-8")) for o in outs]
+
+
+def _rel(torch, a, b) -> float:
+    """The L2 distance of the tensors ``a`` from ``b`` over the norm of ``b``."""
+    return _l2(torch, a, b) / max(_l2(torch, b, [torch.zeros_like(y) for y in b]), 1e-300)
+
+
+def _l2(torch, a, b) -> float:
+    return sum(float(torch.linalg.vector_norm((x - y).double())) ** 2
+               for x, y in zip(a, b)) ** 0.5
+
+
+def _weight_err_over_move(torch, before, after, ref_after) -> dict:
+    """Per module, the L2 distance of ``after`` from ``ref_after`` over
+    the reference step's move from ``before``."""
+    out = {}
+    for n, ref in ref_after.items():
+        keys = sorted(ref)
+        move = _l2(torch, [ref[k] for k in keys], [before[n][k] for k in keys])
+        out[n] = _l2(torch, [after[n][k] for k in keys], [ref[k] for k in keys]) / max(move,
+                                                                                     1e-300)
+    return out
+
+
+def dp_rank_main(torch, rank: int, store: str, align_path: str, data: str) -> dict:
+    """One of two gloo ranks on ``cuda:0``: one alignment step on its 34 of
+    ``DP_ALIGN_B`` rows (the CTC kernels' launches counted), both kernels
+    held against the plain version at its shard's shape, one fp32 acoustic
+    step on its 4 of ``DP_ACOUSTIC_B`` rows; its results, the first
+    averaged gradients and the weights after, to files beside ``store``."""
+    from stylish_tts_torch import parallel
+    from stylish_tts_torch.ops import ctc_cuda
+    from stylish_tts_torch.trainer.steps import Batch
+
+    parallel.init_data_parallel(backend="gloo", rank=rank, world_size=2,
+                                init_method=f"file://{store}", device="cuda:0", timeout_s=300)
+    try:
+        saved = torch.load(align_path, weights_only=True)
+        batch = Batch(*(None if x is None else x.cuda() for x in saved["batch"]))
+        rows = list(parallel.shard_rows(range(DP_ALIGN_B)))
+        for k in ctc_cuda.LAUNCHES:
+            ctc_cuda.LAUNCHES[k] = 0
+        collectives = dict(parallel.COLLECTIVES)
+        align = dp_align_run(torch, batch, 1, rows=rows, dropout=False)
+        align_collectives = {k: parallel.COLLECTIVES[k] - collectives[k] for k in collectives}
+        b, t, c, u = saved["shape"]
+        spec = dict(b=len(rows), t=t, c=c, u=u,
+                    label_lengths=saved["batch"][2][rows].tolist(), input_lengths=[t] * len(rows))
+        check, _ = check_case(torch, f"dp rank {rank}", spec, seed=200 + rank)
+        acoustic_rows = list(parallel.shard_rows(range(DP_ACOUSTIC_B)))
+        collectives = dict(parallel.COLLECTIVES)
+        acoustic = dp_acoustic_run(torch, Path(data), DP_ACOUSTIC_B, 1, prior=saved["prior"],
+                                   rows=acoustic_rows)
+        acoustic_collectives = {k: parallel.COLLECTIVES[k] - collectives[k]
+                                for k in collectives}
+        torch.save({"align": {k: align[k] for k in ("after", "grads", "priors", "losses")},
+                    "acoustic": {k: acoustic[k] for k in ("after", "grads")}},
+                   f"{store}.rank{rank}.pt")
+    finally:
+        parallel.shutdown()
+    return {"rank": rank, "align_loss": float(align["losses"][0]),
+            "align_step_ms": align["step_ms"][0], "align_launches": align["launches"],
+            "align_collectives": align_collectives, "acoustic_metrics": acoustic["metrics"][0],
+            "acoustic_step_ms": acoustic["step_ms"][0], "acoustic_medians": acoustic["medians"],
+            "acoustic_collectives": acoustic_collectives, "kernel_check": check}
+
+
+def dp_two_ranks(torch, align_batch, data, work: Path) -> dict:
+    """(b) Two gloo ranks on the one card (children of this process) against
+    one process on the same rows: the alignment step on ``DP_ALIGN_B`` rows
+    and the fp32 acoustic step on ``DP_ACOUSTIC_B``: metrics ``DP_METRIC_RTOL``,
+    priors ``DP_PRIOR_ATOL``, averaged gradients ``DP_GRAD_RTOL``, weights
+    ``DP_WEIGHT_RTOL`` of the step's move (the acoustic step's
+    ``DP_ACOUSTIC_WEIGHT_RTOL``); the CTC kernels launched in both ranks.
+
+    The acoustic comparison takes an injected excitation (the deterministic
+    sine source accumulates its phase with a scan whose rounding follows the
+    batch) and PyTorch's own convolutions (cuDNN's choice of algorithm
+    follows the batch). The kernels still round a row's scores differently
+    in a batch of 4 and of 8, by ~1e-7, and that swaps most TPRLS medians
+    (lower medians of ~100,000 scores) with a neighbour: the median
+    element's gradient is the sum of all the others', so a swap moves a
+    module's gradient by up to its own size (measured: 14 of 22 medians,
+    the speech predictor's gradient by 0.28). So the medians' values are
+    held (``DP_MEDIAN_ATOL``: global medians), and the gradients with the
+    medians' gradient stopped on both
+    sides (a patch of this comparison only; the gradient through the
+    gathered median is held against JAX exactly in
+    tests/test_torch_parallel.py)."""
+    from stylish_tts_torch.trainer.steps import Batch
+
+    rows = list(range(DP_ALIGN_B))
+    cut = Batch(*(None if x is None else x[rows] for x in align_batch))
+    with torch.no_grad():
+        from stylish_tts_torch.config import ModelConfig
+        from stylish_tts_torch.trainer.normalization import NormalizationStats
+        from stylish_tts_torch.trainer.steps import StepContext
+
+        ctx = StepContext(ModelConfig(), {}, NormalizationStats())
+        frames = ctx.norm_mel(cut.audio_gt[:1], ctx.to_align_mel).shape[-1]
+    shape = (DP_ALIGN_B, frames, ctx.blank_id + 1, cut.text.shape[1])
+    align_path = work / "dp_align_batch.pt"
+    with torch.no_grad():  # the step's frames: the even mel frames of the audio
+        frames = ctx.norm_mel(torch.as_tensor(acoustic_batch(torch, data, 1).audio_gt),
+                              ctx.to_mel).shape[-1]
+    samples = ModelConfig().hop_length * frames
+    gen = torch.Generator().manual_seed(5)
+    prior = torch.tanh(torch.randn((DP_ACOUSTIC_B, samples), generator=gen) * 0.3)
+    torch.save({"batch": [None if x is None else x.cpu() for x in cut], "shape": shape,
+                "prior": prior}, align_path)
+    ref_align = dp_align_run(torch, cut, 1, dropout=False)
+    ref_acoustic = dp_acoustic_run(torch, data, DP_ACOUSTIC_B, 1, prior=prior)
+    for k in ("state", "batch", "ctx"):
+        ref_acoustic.pop(k)
+    store = work / "store_dp2"
+    ranks = children(torch, "--dp-rank", [(r, store, align_path, data) for r in (0, 1)])
+    saved = [torch.load(f"{store}.rank{r}.pt", weights_only=True) for r in (0, 1)]
+    ref = {"align_loss": float(ref_align["losses"][0]),
+           "acoustic_metrics": ref_acoustic["metrics"][0]}
+    errs = {"align_loss_rel": max(abs(r["align_loss"] - ref["align_loss"]) / abs(ref["align_loss"])
+                                  for r in ranks),
+            "acoustic_metric_rel": {k: max(abs(r["acoustic_metrics"][k] - v) / max(abs(v), 1e-30)
+                                           for r in ranks)
+                                    for k, v in ref["acoustic_metrics"].items()},
+            "median_abs": max(abs(a - b) for r in ranks
+                              for a, b in zip(r["acoustic_medians"], ref_acoustic["medians"])),
+            "medians": len(ref_acoustic["medians"]),
+            "priors_abs": max(float((s["align"]["priors"][k].double()
+                                     - ref_align["priors"][k].double()).abs().max())
+                              for s in saved for k in ("log_priors_sum", "prior_count")),
+            "align_grad_rel": max(_rel(torch, s["align"]["grads"]["text_aligner"],
+                                       ref_align["grads"]["text_aligner"]) for s in saved),
+            "acoustic_grad_rel": {n: max(_rel(torch, s["acoustic"]["grads"][n], g)
+                                         for s in saved)
+                                  for n, g in ref_acoustic["grads"].items()},
+            "align_weight_err_over_move": max(
+                _weight_err_over_move(torch, ref_align["before"], s["align"]["after"],
+                                      ref_align["after"])["text_aligner"] for s in saved),
+            "acoustic_weight_err_over_move": {
+                n: max(_weight_err_over_move(torch, ref_acoustic["before"],
+                                             s["acoustic"]["after"], ref_acoustic["after"])[n]
+                       for s in saved) for n in ref_acoustic["after"]},
+            "ranks_weights_equal": all(
+                _weights_equal(torch, saved[0][k]["after"], saved[1][k]["after"])
+                for k in ("align", "acoustic"))}
+    launches = {k: sum(r["align_launches"][k] for r in ranks) for k in ranks[0]["align_launches"]}
+    report = {"ranks": ranks, "errors": errs, "launches": launches,
+              "reference_step_ms": {"align": ref_align["step_ms"][0],
+                                    "acoustic": ref_acoustic["step_ms"][0]}}
+    log(f"dp two gloo ranks on one card: errors {errs}; CTC launches {launches}; "
+        f"collectives per step: align {ranks[0]['align_collectives']}, acoustic "
+        f"{ranks[0]['acoustic_collectives']}")
+    bad = [k for k, lim in (("align_loss_rel", DP_METRIC_RTOL),
+                            ("priors_abs", DP_PRIOR_ATOL), ("align_grad_rel", DP_GRAD_RTOL),
+                            ("align_weight_err_over_move", DP_WEIGHT_RTOL),
+                            ("median_abs", DP_MEDIAN_ATOL))
+           if not errs[k] <= lim]
+    for key, lim in (("acoustic_metric_rel", DP_METRIC_RTOL),
+                     ("acoustic_grad_rel", DP_GRAD_RTOL),
+                     ("acoustic_weight_err_over_move", DP_ACOUSTIC_WEIGHT_RTOL)):
+        bad += [f"{key} {n}" for n, v in errs[key].items() if not v <= lim]
+    if bad or not errs["ranks_weights_equal"] or not all(launches.values()) or any(
+            launches[k] != 2 for k in launches):
+        fail(f"two ranks against one process: {bad}, ranks alike "
+             f"{errs['ranks_weights_equal']}, CTC launches {launches}")
+    return report
+
+
+def dp_profile(torch, data: Path, work: Path) -> dict:
+    """(d) ``train --stage acoustic --profile DIR`` through the CLI for 2
+    steps (B = 8 on the first 16 clips; bf16, no slm term, the later stages
+    at 0 epochs): the Chrome trace parsed, its CUDA kernel events counted and
+    summed by name."""
+    import yaml
+
+    root = work / "dp_profile"
+    root.mkdir()
+    for split, n in (("train", 16), ("val", 2)):
+        lines = (data / f"{split}-list.txt").read_text(encoding="utf-8").splitlines()[:n]
+        (root / f"{split}-list.txt").write_text("\n".join(lines) + "\n", encoding="utf-8")
+    for name in ("wav-dir", "pitch.safetensors", "alignment.safetensors"):
+        (root / name).symlink_to(data / name)
+    cfg, model_cfg = acoustic_configs(root, root)
+    doc = yaml.safe_load(cfg.read_text(encoding="utf-8"))
+    doc["loss_weight"]["slm"] = 0.0
+    cfg.write_text(yaml.safe_dump(doc), encoding="utf-8")
+    cfg = config_until(cfg, "acoustic")
+    trace_dir = root / "trace"
+    trainer, wall = cli(torch, "train", "--config", str(cfg), "--model-config", str(model_cfg),
+                        "--out", str(root / "out"), "--stage", "acoustic", "--profile",
+                        str(trace_dir))
+    steps = trainer.stage_manifests["acoustic"].current_total_step
+    path = trace_dir / "trace_rank0.json"
+    t0 = time.time()
+    events = json.loads(path.read_text(encoding="utf-8"))["traceEvents"]
+    parse_s = time.time() - t0
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            k = kernels.setdefault(e["name"], [0, 0.0])
+            k[0] += 1
+            k[1] += e.get("dur", 0.0) / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
+    report = {"steps": steps, "wall_s": wall, "trace_mb": path.stat().st_size / 1e6,
+              "parse_s": parse_s, "events": len(events),
+              "kernel_events": sum(v[0] for v in kernels.values()),
+              "kernel_ms": sum(v[1] for v in kernels.values()), "kernel_names": len(kernels),
+              "top_kernels_ms": {name[:80]: round(v[1], 3) for name, v in top}}
+    log(f"train --profile: {steps} steps in {wall:.1f} s; trace {report['trace_mb']:.1f} MB, "
+        f"{report['events']} events, {report['kernel_events']} CUDA kernel events "
+        f"({report['kernel_ms']:.1f} ms, {len(kernels)} kernels); top {report['top_kernels_ms']}")
+    if steps != 2 or not report["kernel_events"]:
+        fail(f"train --profile: {steps} steps, {report['kernel_events']} kernel events")
+    return report
+
+
+def dp_flops(torch, data: Path, card: str) -> dict:
+    """(e) The analytic matmul + convolution FLOPs (``utils/flops.py``) of
+    the bf16 acoustic step at B = 16 with the slm term (the sampled MRD as
+    the mean of the three ``forced_disc_index`` runs), its achieved TFLOP/s
+    at the step's time (the median of 3 steps with the MRD sampled, after
+    the counted ones) and the MFU against the H100's dense bf16 peak."""
+    from stylish_tts_torch.config import Config, ModelConfig
+    from stylish_tts_torch.models.slm import random_wavlm, wavlm_loss
+    from stylish_tts_torch.trainer.normalization import NormalizationStats
+    from stylish_tts_torch.trainer.steps import StepContext, batch_to_device, make_acoustic_step
+    from stylish_tts_torch.utils.flops import count_mean
+
+    mc = ModelConfig()
+    batch = batch_to_device(acoustic_batch(torch, data, ACOUSTIC_B), "cuda")
+    state = stage_state(torch, mc, "cuda")
+    state.wavlm = random_wavlm(0).cuda().eval().requires_grad_(False)
+    steps = [make_acoustic_step(StepContext(
+        mc, Config().loss_weight.model_dump(), NormalizationStats(), stage_steps=10_000,
+        slm_loss_fn=wavlm_loss, mixed_precision=True, forced_disc_index=i)) for i in range(3)]
+    t0 = time.time()
+    count = count_mean(steps, state, batch)
+    torch.cuda.synchronize()
+    count_s = time.time() - t0
+    sampled = make_acoustic_step(StepContext(
+        mc, Config().loss_weight.model_dump(), NormalizationStats(), stage_steps=10_000,
+        slm_loss_fn=wavlm_loss, mixed_precision=True))
+    step_ms = median_ms(torch, lambda: sampled(state, batch), n=3, warmup=1, sleep=False)
+    achieved = count.total / (step_ms / 1e3)
+    report = {"card": card, "B": ACOUSTIC_B, "flops": count.total, "matmul_flops": count.matmul,
+              "conv_flops": count.conv, "notes": count.notes, "count_s": count_s,
+              "step_ms": step_ms, "achieved_tflops": achieved / 1e12,
+              "mfu_vs_dense_bf16": achieved / H100_BF16_DENSE_FLOP_PER_S}
+    log(f"acoustic step B={ACOUSTIC_B}: {count.total / 1e12:.4f} TFLOP (matmul "
+        f"{count.matmul / 1e12:.4f}, conv {count.conv / 1e12:.4f}); at {step_ms:.2f} ms "
+        f"{achieved / 1e12:.2f} TFLOP/s, MFU {report['mfu_vs_dense_bf16']:.4f} of the dense "
+        f"bf16 peak 989 TFLOP/s ({card})")
+    if not count.total > 0:
+        fail("the acoustic step counted no FLOPs")
+    return report
+
+
+def phase_data_parallel(torch, work: Path, card: str, align_batch, main_shape) -> dict:
+    """Phase 12: (a) world size 1 through NCCL bitwise; (b) two gloo ranks on
+    the card against one process; (c) the bounds-checked CTC build in a
+    child; (d) ``train --profile``; (e) the FLOP count and MFU."""
+    t0 = time.time()
+    data = work / "data"
+    report = {"world_one": dp_world_one(torch, align_batch, data, work)}
+    report["two_ranks"] = dp_two_ranks(torch, align_batch, data, work)
+    report["ctc_checked"] = child(torch, "--ctc-checked", *main_shape)
+    report["profile"] = dp_profile(torch, data, work)
+    report["flops"] = dp_flops(torch, data, card)
+    report["wall_s"] = time.time() - t0
+    log(f"data-parallel phase: {report['wall_s']:.1f} s")
+    return report
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         return child_main(sys.argv[1:])
@@ -3720,7 +4315,16 @@ def main() -> int:
     t_start = time.time()
     card = card_line()
     print(card, flush=True)
+    phase_s = {}  # wall seconds of each phase, in order
+    mark = [time.time()]
+
+    def lap(name):
+        now = time.time()
+        phase_s[name] = now - mark[0]
+        mark[0] = now
+
     phase_build()
+    lap("1_build")
 
     # fp32 everywhere, as the trainer sets it too
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3728,8 +4332,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         trainer, state, batch, main_run = phase_main_path(torch, Path(tmp))
     main_shape, step_ms, profile = phase_step_time(torch, trainer, state, batch)
+    lap("2_main_path")
 
     checks = phase_check(torch, main_shape)
+    lap("3_check")
     timings = {
         "main_path": phase_time(torch, main_shape, 11,
                                 label_lengths=batch.text_lengths.tolist()),
@@ -3751,20 +4357,30 @@ def main() -> int:
     fit = frame_fit(timings)
     log(f"one-sequence forward per frame: {fit['fixed_us_per_frame']:.4f} us fixed "
         f"+ {fit['ns_per_state']:.4f} ns per state (points {fit['points']})")
+    lap("4_time")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_front_") as tmp:
         front = phase_front_end(torch, Path(tmp), card)
+        lap("6_front_end")
         acoustic = phase_stages(torch, Path(tmp), card)
+        lap("7_stages")
         recipe = phase_recipe(torch, Path(tmp))
+        lap("8_recipe")
         ringformer = phase_ringformer(torch, Path(tmp), card)
+        lap("9_ringformer")
         audiobook = phase_audiobook(torch, Path(tmp), card)
+        lap("10_audiobook")
         imported = phase_imported(torch, Path(tmp), card)
+        lap("11_imported")
+        data_parallel = phase_data_parallel(torch, Path(tmp), card, batch, main_shape)
+        lap("12_data_parallel")
     front_launches = front["train_align"]["launches"]
     if not all(front_launches.values()):
         fail(f"a CTC kernel of the front end's train-align never launched: {front_launches}")
     book_launches = audiobook["train_align"]["launches"]
 
     synthesis = phase_synthesis(torch, card)
+    lap("5_synthesis")
 
     src = "stylish_tts_torch/csrc/ctc.cu"
     tm = timings["main_path"]
@@ -3780,7 +4396,11 @@ def main() -> int:
             "launches_by_path": {"audiobook_train_align": book_launches[key],
                                  "front_end_train_align": front_launches[key],
                                  "main_path_train_align": main_run["launches"][key],
-                                 "imported_voice": imported["ctc_launches"][key]},
+                                 "imported_voice": imported["ctc_launches"][key],
+                                 "data_parallel_world_one_align":
+                                     data_parallel["world_one"]["align_launches"][key],
+                                 "data_parallel_two_ranks_align":
+                                     data_parallel["two_ranks"]["launches"][key]},
             "max_abs_err": max(checks["main_path"][err], audiobook["kernel_check"][err]),
             "ms": tm[key]["ms"], "plain_ms": tm[key]["plain_ms"],
             "bound_ms": tm[key]["bound_ms"], "bound_by": tm[key]["bound_by"],
@@ -3790,7 +4410,9 @@ def main() -> int:
               "timings": timings, "frame_fit": fit, "kernels": kernels,
               "front_end": front, "synthesis": synthesis, "acoustic": acoustic,
               "recipe": recipe, "ringformer": ringformer, "audiobook": audiobook,
-              "imported": imported, "wall_s": time.time() - t_start}
+              "imported": imported, "data_parallel": data_parallel, "phase_s": phase_s,
+              "wall_s": time.time() - t_start}
+    log("phase wall s: " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}))
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     log(f"total {time.time() - t_start:.1f} s; details in {OUT / 'chip_smoke.json'}")
@@ -3975,6 +4597,25 @@ def main() -> int:
         "random_weights_profile_device_ms": prof["device_ms"],
         "random_weights_profile_launches": prof["launches"],
         "ctc_launches": im["ctc_launches"]}}), flush=True)
+    dp, dpe = data_parallel, data_parallel["two_ranks"]["errors"]
+    print("data parallel: the machine holds one card, so no multi-GPU scaling number "
+          "exists; two ranks share that card through gloo", flush=True)
+    print(json.dumps({"data_parallel": {
+        "card": card, "wall_s": dp["wall_s"], "world_one_bitwise": dp["world_one"]["bitwise"],
+        "world_one_step_ms": dp["world_one"]["step_ms"],
+        "world_one_collectives": dp["world_one"]["collectives_ws1"],
+        "two_ranks_errors": dpe, "two_ranks_ctc_launches": dp["two_ranks"]["launches"],
+        "two_ranks_step_ms": {r["rank"]: [r["align_step_ms"], r["acoustic_step_ms"]]
+                              for r in dp["two_ranks"]["ranks"]},
+        "one_process_step_ms": dp["two_ranks"]["reference_step_ms"],
+        "two_ranks_collectives": {k: dp["two_ranks"]["ranks"][0][k]
+                                  for k in ("align_collectives", "acoustic_collectives")},
+        "ctc_checked_u512_runs": dp["ctc_checked"]["u512_runs"],
+        "profile": {k: dp["profile"][k] for k in ("steps", "trace_mb", "kernel_events",
+                                                  "kernel_ms", "kernel_names")},
+        "flops_acoustic_b16": dp["flops"]["flops"],
+        "achieved_tflops": dp["flops"]["achieved_tflops"],
+        "mfu_vs_dense_bf16": dp["flops"]["mfu_vs_dense_bf16"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,13 @@ Every command that computes runs on ``--device cuda`` unless told
 ``--device cpu``, and raises where CUDA is missing; ``import-torch``,
 ``convert``, ``dataset-from-audiobook`` and ``prepare-book`` are file and
 text work on the CPU and take no device.
+
+``train-align`` and ``train`` run data-parallel under ``torchrun
+--standalone --nproc-per-node N -m stylish_tts_torch.cli ...``: one process
+per card (``cuda:LOCAL_RANK``), each global batch split over the N ranks
+(``parallel``). The JAX trainer takes every local device by itself; the
+port needs this explicit launch (a departure kept on purpose). Without
+``torchrun`` they run on the one device they are given.
 """
 
 from __future__ import annotations
@@ -46,13 +53,9 @@ def train_align(config_path, model_config_path, out_dir, checkpoint, device,
                 record_steps):
     """Alignment (CTC) pretraining; saves alignment_model.safetensors.
     Returns the Trainer to callers that run the command in-process."""
-    from .trainer.loop import Trainer
-
     config, model_config = _load_configs(config_path, model_config_path)
-    trainer = Trainer(config, model_config, out_dir, device=device,
-                      record_steps=record_steps)
-    trainer.train("alignment", checkpoint=checkpoint)
-    return trainer
+    return _train(config, model_config, out_dir, device, record_steps, None,
+                  "alignment", checkpoint=checkpoint)
 
 
 @train_cli.command("train")
@@ -69,20 +72,60 @@ def train_align(config_path, model_config_path, out_dir, checkpoint, device,
               help="load the checkpoint's weights but restart the stage's counters")
 @click.option("--device", default="cuda", show_default=True,
               help="torch device; 'cpu' runs on the CPU (float32)")
+@click.option("--profile", "profile_dir", default=None, type=click.Path(),
+              help="trace the whole run with torch.profiler into this directory "
+                   "(a Chrome trace per rank, trace_rank<R>.json)")
 @click.option("--record-steps", is_flag=True, hidden=True, help=RECORD_HELP)
 def train(config_path, model_config_path, out_dir, stage, checkpoint, reset_stage,
-          device, record_steps):
+          device, profile_dir, record_steps):
     """Main training: acoustic, then textual, then duration, from the given
-    stage on. The JAX ``--profile`` flag (a jax.profiler trace) has no
-    counterpart. Returns the Trainer to callers that run the command
-    in-process."""
-    from .trainer.loop import Trainer
-
+    stage on. ``--profile DIR`` wraps the whole run in ``torch.profiler`` (the
+    JAX command's ``jax.profiler.trace``). Returns the Trainer to callers
+    that run the command in-process."""
     config, model_config = _load_configs(config_path, model_config_path)
-    trainer = Trainer(config, model_config, out_dir, device=device,
-                      record_steps=record_steps)
-    trainer.train(stage, checkpoint=checkpoint, reset_stage=reset_stage)
+    return _train(config, model_config, out_dir, device, record_steps, profile_dir,
+                  stage, checkpoint=checkpoint, reset_stage=reset_stage)
+
+
+def _train(config, model_config, out_dir, device, record_steps, profile_dir, stage,
+           **kwargs):
+    """A Trainer's ``train(stage, **kwargs)`` on ``device``: in ``torchrun``'s
+    process group where the command runs under it (this rank's card), under
+    ``torch.profiler`` with ``profile_dir``; returns the Trainer."""
+    from . import parallel
+    from .trainer.loop import Trainer
+    from .utils.device import resolve_device
+
+    dev = resolve_device(device)
+    joined = parallel.init_data_parallel(device=dev)
+    try:
+        trainer = Trainer(config, model_config, out_dir, device=dev,
+                          record_steps=record_steps)
+        if profile_dir is None:
+            trainer.train(stage, **kwargs)
+        else:
+            _profiled(trainer, profile_dir, stage, **kwargs)
+    finally:
+        if joined:
+            parallel.shutdown()
     return trainer
+
+
+def _profiled(trainer, profile_dir, stage, **kwargs):
+    """``trainer.train`` under ``torch.profiler`` (the host, and the card
+    where the trainer runs on one), its Chrome trace written to
+    ``profile_dir/trace_rank<R>.json``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from . import parallel
+
+    activities = [ProfilerActivity.CPU]
+    if trainer.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        trainer.train(stage, **kwargs)
+    os.makedirs(profile_dir, exist_ok=True)
+    prof.export_chrome_trace(osp.join(profile_dir, f"trace_rank{parallel.rank()}.json"))
 
 
 @train_cli.command("dataset-from-audiobook")

@@ -73,6 +73,16 @@
 
 #include <cuda_runtime.h>
 
+// Built with -DCTC_BOUNDS_CHECK (ops/ctc_cuda.py build(checked=True)), a
+// device assert guards every shared-memory and global index below; the
+// normal build compiles the checks away.
+#ifdef CTC_BOUNDS_CHECK
+#include <cassert>
+#define CTC_CHECK(cond) assert(cond)
+#else
+#define CTC_CHECK(cond) ((void)0)
+#endif
+
 namespace {
 
 constexpr float kNegF = -1e30f;
@@ -174,15 +184,21 @@ __device__ void walk(const float* __restrict__ log_probs,
   for (int j = 0; j < K; ++j) {
     const int s = tid + j * blockDim.x;
     live[j] = s < n_valid;
+    CTC_CHECK(!live[j] || !(s & 1) || (s >> 1) < L);
     const int z = !live[j] ? blank : ((s & 1) ? lab[s >> 1] : blank);
     zok[j] = z >= 0 && z < C;
     zc[j] = zok[j] ? z : 0;
     if (kBeta) {
+      CTC_CHECK(!(s + 2 < n_valid && (s & 1)) || ((s + 2) >> 1) < L);
       const int zd = s + 2 < n_valid ? ((s & 1) ? lab[(s + 2) >> 1] : blank)
                                      : blank;
       skip[j] = s + 2 < n_valid && zd != blank && zd != z;
     } else {
-      const int zs = s >= 2 ? ((s & 1) ? lab[(s - 2) >> 1] : blank) : blank;
+      // the previous label of a live state only: (s - 2) >> 1 of a state
+      // past 2L+1 lies beyond the row (beyond the tensor on its last row)
+      CTC_CHECK(!(live[j] && s >= 2 && (s & 1)) || ((s - 2) >> 1) < L);
+      const int zs = (live[j] && s >= 2) ? ((s & 1) ? lab[(s - 2) >> 1] : blank)
+                                         : blank;
       skip[j] = s >= 2 && z != blank && z != zs;
     }
   }
@@ -195,9 +211,12 @@ __device__ void walk(const float* __restrict__ log_probs,
   // the emissions of this thread's states at step i, NEG past len
   auto emissions = [&](int i, float* e) {
     const bool in = i < len;
-    const float* row = lp_b + static_cast<size_t>(in ? (kBeta ? len - 1 - i : i) : 0) * C;
+    const int tr = in ? (kBeta ? len - 1 - i : i) : 0;
+    CTC_CHECK(tr >= 0 && tr < T);
+    const float* row = lp_b + static_cast<size_t>(tr) * C;
 #pragma unroll
     for (int j = 0; j < K; ++j) {
+      CTC_CHECK(zc[j] >= 0 && zc[j] < C);
       e[j] = (in && live[j] && zok[j]) ? __ldg(row + zc[j]) : kNegF;
     }
   };
@@ -227,10 +246,12 @@ __device__ void walk(const float* __restrict__ log_probs,
         v = s <= 1 ? make_float2(e0[j], 0.f) : neg;  // s == 1 live only if L > 0
         w = v;
       }
+      CTC_CHECK(s + 2 < P && t >= 0 && t < T && s < S);
       prev[s + 2] = w;
       if (store) out[static_cast<size_t>(t) * S + s] = v.x + v.y;
       tmax = fmaxf(tmax, v.x);
     }
+    CTC_CHECK(t >= 0 && t < T);
     if (store && tid == 0) offsets[t] = 0.0;
   }
   __syncthreads();
@@ -243,6 +264,7 @@ __device__ void walk(const float* __restrict__ log_probs,
     // that each warp reads the 32 keys in one shared-memory wavefront
     int wk = 0;
     if (store) {
+      CTC_CHECK(warp < 32 && ((i - 2) & 1) * 32 + lane < 64);
       wk = wmax[((i - 2) & 1) * 32 + lane];
       const int mine = __reduce_max_sync(0xffffffffu, order_key(tmax));
       if (lane == 0) wmax[((i - 1) & 1) * 32 + warp] = mine;
@@ -252,6 +274,7 @@ __device__ void walk(const float* __restrict__ log_probs,
     for (int j = 0; j < K; ++j) {
       if (!live[j]) continue;
       const int p = tid + j * blockDim.x + 2;
+      CTC_CHECK(p >= 2 && p + 2 < P);
       if (kBeta) {
         v[j] = lse3_plus(prev[p], prev[p + 1], skip[j] ? prev[p + 2] : neg, 0.f);
         cur[p] = add(v[j], e[j]);
@@ -267,6 +290,7 @@ __device__ void walk(const float* __restrict__ log_probs,
 #pragma unroll
       for (int j = 0; j < K; ++j) {
         if (!live[j]) continue;
+        CTC_CHECK(t >= 0 && t < T && tid + j * blockDim.x < S);
         // v - o: hi - o is exact where it matters (Sterbenz), then lo
         out[static_cast<size_t>(t) * S + tid + j * blockDim.x] = (v[j].x - o) + v[j].y;
         tmax = fmaxf(tmax, v[j].x);
@@ -298,6 +322,7 @@ __device__ void walk(const float* __restrict__ log_probs,
   }
 
   if (!kBeta && tid == 0) {
+    CTC_CHECK(2 * L + 2 < P && b < gridDim.x);
     const float2 b2 = prev[2 * L + 2];
     const float2 l2 = prev[max(2 * L - 1, 0) + 2];
     const double fb = static_cast<double>(b2.x) + static_cast<double>(b2.y);
@@ -347,6 +372,7 @@ __global__ void ctc_grad_kernel(const float* __restrict__ alpha,
   float* row = bins + warp * C;
 
   for (int u = threadIdx.x; u < L; u += blockDim.x) {
+    CTC_CHECK(u < U);
     lab[u] = labels[static_cast<size_t>(b) * U + u];
   }
   for (int c = lane; c < C; c += 32) row[c] = 0.f;
@@ -355,6 +381,7 @@ __global__ void ctc_grad_kernel(const float* __restrict__ alpha,
   // one frame per warp
   const int t = blockIdx.x * kGradWarps + warp;
   if (t >= T) return;
+  CTC_CHECK(b < gridDim.y && t < T);
   float* grad_t = grad + (static_cast<size_t>(b) * T + t) * C;
   // no alignment fits the row (ll at NEG): no gradient, as in the spec
   if (t >= len || ll[b] <= 0.5 * kNegF) {
@@ -369,7 +396,10 @@ __global__ void ctc_grad_kernel(const float* __restrict__ alpha,
   // independent, and the later passes read L1
   float m = kLowF;
 #pragma unroll 4
-  for (int s = lane; s < n_valid; s += 32) m = fmaxf(m, a_t[s] + b_t[s]);
+  for (int s = lane; s < n_valid; s += 32) {
+    CTC_CHECK(s < S);
+    m = fmaxf(m, a_t[s] + b_t[s]);
+  }
   m = from_order_key(__reduce_max_sync(0xffffffffu, order_key(m)));
   float sum = 0.f;
 #pragma unroll 4
@@ -388,6 +418,7 @@ __global__ void ctc_grad_kernel(const float* __restrict__ alpha,
     const float2 x = two_sum(a_t[s], b_t[s]);
     const float gamma = ex2((((x.x - m) + x.y) - f) * kLog2eF);
     if (s & 1) {
+      CTC_CHECK((s >> 1) < L);
       const int z = lab[s >> 1];
       if (z >= 0 && z < C) atomicAdd(&row[z], gamma);
     } else {
@@ -397,6 +428,7 @@ __global__ void ctc_grad_kernel(const float* __restrict__ alpha,
   for (int off = 16; off > 0; off >>= 1) {
     blank_sum += __shfl_xor_sync(0xffffffffu, blank_sum, off);
   }
+  CTC_CHECK(blank >= 0 && blank < C);
   if (lane == 0) atomicAdd(&row[blank], blank_sum);
   __syncwarp();
   for (int c = lane; c < C; c += 32) grad_t[c] = gb * row[c];

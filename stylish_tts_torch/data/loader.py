@@ -6,7 +6,8 @@ copy] ahead of the training step. Audio comes through the native C++
 batch loader (``native/``) when it builds and every segment of the batch
 has its time bin from the header scan, otherwise through
 ``dataset.load_segment`` (scipy WAV IO). ``BATCHES`` counts which path
-served each batch.
+served each batch. Data parallel, each rank draws the same global batch
+from its sampler and loads only its rows (``parallel.shard_rows``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import queue
 import threading
 from typing import Iterator
 
+from .. import parallel
 from .collate import collate_batch
 from .dataset import FilePathDataset, get_frame_count
 
@@ -95,7 +97,8 @@ class PrefetchLoader:
                     if stop.is_set():
                         break
                     batch, paths = collate_batch(
-                        self.load_items(idxs), hop_length=self.hop_length,
+                        self.load_items(parallel.shard_rows(idxs)),
+                        hop_length=self.hop_length,
                         require_pitch=self.require_pitch,
                     )
                     if self.device_put is not None:

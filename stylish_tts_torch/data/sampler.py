@@ -23,6 +23,7 @@ from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
+from .. import parallel
 from .dataset import get_frame_count
 
 
@@ -40,7 +41,8 @@ class BatchSizeTable:
         self.sizes = {int(k): int(v) for k, v in raw.items()}
 
     def save(self) -> None:
-        if self.path:
+        """Write the table (rank 0 alone, data parallel)."""
+        if self.path and parallel.is_writer():
             with open(self.path, "w", encoding="utf-8") as f:
                 json.dump({str(k): v for k, v in self.sizes.items()}, f)
 
@@ -60,10 +62,11 @@ class BatchSizeTable:
     def get(self, time_bin: int) -> int:
         return max(self.sizes.get(time_bin, 1), 1)
 
-    def shrink(self, time_bin: int, factor: float = 0.9) -> int:
+    def shrink(self, time_bin: int, factor: float = 0.9, multiple: int = 1) -> int:
         """Durably lower a bin's batch size (reference batch_manager.py:193-233
-        OOM retry path)."""
-        new = max(int(self.get(time_bin) * factor), 1)
+        OOM retry path), to a multiple of ``multiple`` (the data-parallel
+        width), at least one."""
+        new = max(int(self.get(time_bin) * factor) // multiple * multiple, multiple)
         self.sizes[time_bin] = new
         self.save()
         return new

@@ -16,6 +16,14 @@ Counterpart of ``stylish_tts_tpu/losses.py``:
   their targets are stop-gradient;
 * the ringformer's ``magphase_loss``: the head's log-amplitude and phase
   against the target STFT at the head's resolution ("mag", "phase").
+
+Every batch-wide statistic is taken over the global batch when the step
+runs data-parallel, as JAX's sharded ``jit`` takes it: a batch mean is the
+mean of the ranks' means (equal shares), spectral convergence's sums, the
+TPRLS lower median (over the ranks' differences gathered in rank order,
+the global batch's order), its element count and ``sum(keep)`` go through
+``parallel``'s differentiable collectives. At world size 1 these are the
+identity, and every loss is what it was.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from typing import Dict, List, Sequence
 
 import torch
 
+from . import parallel
 from .models.common import sequence_mask
 
 TWO_PI = 2.0 * math.pi
@@ -35,14 +44,20 @@ DISC_AUDIO_WEIGHT = 3.0
 UNNORMALIZED_KEYS = ("generator", "align_loss")
 
 
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """The global batch's mean of ``x`` (this rank's rows)."""
+    return parallel.global_mean(torch.mean(x))
+
+
 def spectral_convergence_loss(target_list: Sequence[torch.Tensor],
                               pred_list: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Mean over resolutions of sum|t - p| / (sum|t| + 1e-6); the target
-    side carries no gradient."""
+    """Mean over resolutions of sum|t - p| / (sum|t| + 1e-6), each sum over
+    the global batch; the target side carries no gradient."""
     loss = 0.0
     for target, pred in zip(target_list, pred_list):
         target = target.detach()
-        loss = loss + torch.sum(torch.abs(target - pred)) / (torch.sum(torch.abs(target)) + 1e-6)
+        loss = loss + parallel.global_sum(torch.sum(torch.abs(target - pred))) / (
+            parallel.global_sum(torch.sum(torch.abs(target))) + 1e-6)
     return loss / len(target_list)
 
 
@@ -59,10 +74,10 @@ def differential_phase_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.T
     weights = torch.pow(torch.tensor(base, dtype=torch.float32),
                         torch.arange(freq_size, dtype=torch.float32))
     weights = weights.to(pred.device)[None, :, None]
-    loss = torch.mean(_anti_wrapping(pred - target, weights))
-    loss = loss + torch.mean(_anti_wrapping(
+    loss = _mean(_anti_wrapping(pred - target, weights))
+    loss = loss + _mean(_anti_wrapping(
         torch.diff(pred, dim=1) - torch.diff(target, dim=1), weights[:, :-1, :]))
-    loss = loss + torch.mean(_anti_wrapping(
+    loss = loss + _mean(_anti_wrapping(
         torch.diff(pred, dim=2) - torch.diff(target, dim=2), weights))
     return loss
 
@@ -83,16 +98,17 @@ def magphase_loss(pred_magnitude: torch.Tensor, pred_phase: torch.Tensor,
     target_mag = torch.sqrt(target_real ** 2 + target_imag ** 2) + 1e-14
     mask = (target_mag > 1e-3).to(torch.float32).detach()
     target_phase = mask * torch.atan2(target_imag, target_real)
-    mag = torch.mean(torch.abs(pred_magnitude - torch.log(target_mag + 1e-9)))
+    mag = _mean(torch.abs(pred_magnitude - torch.log(target_mag + 1e-9)))
     phase = differential_phase_loss(mask * pred_phase, target_phase)
     return {"mag": mag, "phase": phase}
 
 
 def _median_lower(x: torch.Tensor) -> torch.Tensor:
-    """The lower of the two middle order statistics for an even-sized input.
-    ``torch.median`` already returns that one (the JAX package sorts to get
-    it, since ``jnp.median`` averages the two)."""
-    return torch.median(x.reshape(-1))
+    """The lower of the two middle order statistics of the global batch's
+    ``x`` for an even-sized input. ``torch.median`` already returns that one
+    (the JAX package sorts to get it, since ``jnp.median`` averages the
+    two)."""
+    return torch.median(parallel.gather_rows(x).reshape(-1))
 
 
 def _tprls(real: torch.Tensor, fake: torch.Tensor, tau: float = 0.04) -> torch.Tensor:
@@ -102,7 +118,7 @@ def _tprls(real: torch.Tensor, fake: torch.Tensor, tau: float = 0.04) -> torch.T
     m = _median_lower(diff)
     keep = (real < fake + m).to(torch.float32)
     sq = torch.square(diff - m) * keep
-    l_rel = torch.sum(sq) / (sq.numel() + 1e-9)
+    l_rel = parallel.global_sum(torch.sum(sq)) / (sq.numel() * parallel.world_size() + 1e-9)
     return tau - torch.relu(tau - l_rel)
 
 
@@ -112,7 +128,7 @@ def _tprls_gen(real: torch.Tensor, fake: torch.Tensor, tau: float = 0.04) -> tor
     m = _median_lower(diff)
     keep = (fake < real + m).to(torch.float32)
     sq = torch.square(diff - m) * keep
-    l_rel = torch.sum(sq) / (torch.sum(keep) + 1e-9)
+    l_rel = parallel.global_sum(torch.sum(sq)) / (parallel.global_count(torch.sum(keep)) + 1e-9)
     return tau - torch.relu(tau - l_rel)
 
 
@@ -124,7 +140,7 @@ def discriminator_pair_loss(real_scores: List[torch.Tensor],
     tprls = 0.0
     for dr, dg in zip(real_scores, fake_scores):
         dr, dg = dr.float(), dg.float()
-        loss = loss + torch.mean(torch.square(1.0 - dr)) + torch.mean(torch.square(dg))
+        loss = loss + _mean(torch.square(1.0 - dr)) + _mean(torch.square(dg))
         tprls = tprls + _tprls(dr, dg)
     return loss + tprls, loss
 
@@ -135,7 +151,7 @@ def generator_pair_loss(real_scores: List[torch.Tensor],
     loss = 0.0
     for dr, dg in zip(real_scores, fake_scores):
         dr, dg = dr.float(), dg.float()
-        loss = loss + torch.mean(torch.square(1.0 - dg)) + _tprls_gen(dr, dg)
+        loss = loss + _mean(torch.square(1.0 - dg)) + _tprls_gen(dr, dg)
     return loss
 
 
@@ -185,7 +201,7 @@ def _smooth_l1_elem(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 def smooth_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Mean Huber loss (delta 1) against a stop-gradient target."""
-    return torch.mean(_smooth_l1_elem(pred, target))
+    return _mean(_smooth_l1_elem(pred, target))
 
 
 def pitch_energy_losses(pred_pitch, pitch, pred_energy, energy) -> Dict[str, torch.Tensor]:
@@ -209,7 +225,7 @@ def duration_ce_loss(pred: torch.Tensor, target_classes: torch.Tensor,
     mask = sequence_mask(text_lengths, pred.shape[1]).to(torch.float32)
     num = torch.sum(-picked * w * mask, dim=1)
     den = torch.sum(w * mask, dim=1) + 1e-9
-    return torch.mean(num / den)
+    return _mean(num / den)
 
 
 def masked_smooth_l1_per_sequence(pred: torch.Tensor, target: torch.Tensor,
@@ -219,4 +235,4 @@ def masked_smooth_l1_per_sequence(pred: torch.Tensor, target: torch.Tensor,
     mask = sequence_mask(lengths, pred.shape[1]).to(torch.float32)
     per_seq = torch.sum(_smooth_l1_elem(pred, target) * mask, dim=1) / torch.clamp_min(
         torch.sum(mask, dim=1), 1.0)
-    return torch.mean(per_seq)
+    return _mean(per_seq)

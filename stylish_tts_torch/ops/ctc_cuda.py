@@ -8,6 +8,12 @@ and loaded with ctypes.
 Dispatch is by the device of the tensor: a CPU tensor takes the plain
 version (``ops/ctc.py``), a CUDA tensor launches the kernels or raises.
 There is no fallback from one to the other.
+
+``bounds_checked()`` switches the wrappers, for the calls inside it, to a
+second build of the same source with ``-DCTC_BOUNDS_CHECK`` (a device
+assert on every shared-memory and global index), in its own file; it is
+built only there. A failed assert ends the process's CUDA context, so run
+it in a process of its own.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Optional
 
@@ -39,8 +46,11 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_lib = None
+CHECK_FLAGS = ["-DCTC_BOUNDS_CHECK"]
+
+_libs = {}  # checked (bool) -> the loaded library
 _lib_lock = threading.Lock()
+_checked = False  # set inside bounds_checked()
 BUILD_LOG = ""  # nvcc's output (ptxas registers / shared memory / spills)
 
 
@@ -54,19 +64,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CTC kernels need the CUDA toolkit")
 
 
-def build() -> ctypes.CDLL:
-    """Compile ``csrc/ctc.cu`` (once per source digest) and load it."""
-    global _lib, BUILD_LOG
+def build(checked: bool = False) -> ctypes.CDLL:
+    """Compile ``csrc/ctc.cu`` (once per source digest) and load it;
+    ``checked``: the bounds-checked variant, into a file of its own."""
+    global BUILD_LOG
     with _lib_lock:
-        if _lib is not None:
-            return _lib
+        if checked in _libs:
+            return _libs[checked]
         digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-        path = BUILD_DIR / f"libctc_{digest}.so"
+        path = BUILD_DIR / f"libctc{'_checked' if checked else ''}_{digest}.so"
         if not path.is_file():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            flags = NVCC_FLAGS + (CHECK_FLAGS if checked else [])
             proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                [_nvcc(), *flags, "-o", str(tmp), str(SOURCE)],
                 capture_output=True, text=True,
             )
             BUILD_LOG = proc.stdout + proc.stderr
@@ -81,8 +93,19 @@ def build() -> ctypes.CDLL:
         lib.ctc_alpha_beta_fwd.restype = i
         lib.ctc_grad_bwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p, p]
         lib.ctc_grad_bwd.restype = i
-        _lib = lib
+        _libs[checked] = lib
         return lib
+
+
+@contextmanager
+def bounds_checked():
+    """Inside, the wrappers launch the bounds-checked build's kernels."""
+    global _checked
+    _checked = True
+    try:
+        yield build(checked=True)
+    finally:
+        _checked = False
 
 
 def _check_ints(b, device, input_lengths, labels, label_lengths):
@@ -143,7 +166,7 @@ def ctc_alpha_beta(log_probs, input_lengths, labels, label_lengths, blank_id,
     b, t, c = log_probs.shape
     u = labels.shape[1]
     s = 2 * u + 1
-    lib = build()
+    lib = build(_checked)
     dev = log_probs.device
     ll = torch.empty((b,), dtype=torch.float64, device=dev)
     alpha = beta = offsets = None
@@ -200,7 +223,7 @@ def ctc_grad(alpha, beta, ll, input_lengths, labels, label_lengths, blank_id,
         raise ValueError("alpha / beta / ll / g do not match the labels")
     if not 0 <= blank_id < num_classes <= MAX_CLASSES:
         raise ValueError(f"blank_id {blank_id} / num_classes {num_classes}")
-    lib = build()
+    lib = build(_checked)
     grad = torch.empty((b, t, num_classes), dtype=torch.float32, device=alpha.device)
     err = lib.ctc_grad_bwd(
         alpha.data_ptr(), beta.data_ptr(), labels.data_ptr(),

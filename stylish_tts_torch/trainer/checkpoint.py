@@ -13,7 +13,9 @@ checkpoint loads into ``StageTrainState``, also an acoustic one that holds
 only the acoustic stage's six modules (the rest keep their init). A
 checkpoint of ``import-torch`` holds the twelve modules in ``state.pt``
 and the aligner beside it (``ALIGNER_FILE``), where the JAX orbax tree
-holds all thirteen.
+holds all thirteen. Data parallel, ``save_checkpoint`` runs on every
+rank (the state's ``state_dict`` gathers every rank's generator states),
+rank 0 alone writes, and the others wait for it at a barrier.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from .. import parallel
 from ..config import Config, ModelConfig
 from .normalization import NormalizationStats
 from .state import StageTrainState, TrainState
@@ -73,8 +76,18 @@ def save_checkpoint(
     path = osp.join(
         out_dir, checkpoint_dir_name(manifest.current_epoch, manifest.current_total_step)
     )
+    saved = state.state_dict()
+    if parallel.is_writer():
+        _write_checkpoint(path, out_dir, saved, manifest, config, model_config,
+                          normalization, max_keep)
+    parallel.barrier()
+    return path
+
+
+def _write_checkpoint(path, out_dir, saved, manifest, config, model_config,
+                      normalization, max_keep) -> None:
     os.makedirs(path, exist_ok=True)
-    torch.save(state.state_dict(), osp.join(path, STATE_FILE))
+    torch.save(saved, osp.join(path, STATE_FILE))
     with open(osp.join(path, "manifest.json"), "w", encoding="utf-8") as f:
         f.write(manifest.to_json())
     with open(osp.join(path, "config.json"), "w", encoding="utf-8") as f:
@@ -89,7 +102,6 @@ def save_checkpoint(
     )
     for old in siblings[:-max_keep]:
         shutil.rmtree(osp.join(out_dir, old), ignore_errors=True)
-    return path
 
 
 def load_checkpoint(

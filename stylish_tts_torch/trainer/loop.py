@@ -54,9 +54,20 @@ configs, and each validation the eval samples' log-mel figures (ground
 truth, prediction, signed difference) where TensorBoard and matplotlib are
 present.
 
-Runs eagerly on one device (the JAX ``n_devices`` is 1 here).
-A failing validation batch raises, and so does a failing figure: the JAX
-loop logs and skips both.
+Data parallel (``parallel``; under ``torchrun``, one process per card):
+the JAX trainer's 1-D mesh over every local device. Every rank's sampler
+draws the same global batch and its loader loads the rank's rows; the
+batch sizes are rounded to the world size N (``_plan_table``, a shrunk bin
+too), the val split's training drops the batches that do not divide by N
+and validation chunks by N, as the JAX loop does; the validation and
+logged metrics are averaged over the ranks, one collective per pass or log
+interval. Rank 0 alone writes the checkpoints, metrics, figures, eval wavs
+(the eval samples of other ranks gathered to it), batch-size tables,
+``git_state.txt``, the normalization cache and the aligner; the others wait
+at a barrier where they must. An out-of-memory step is a collective
+decision (``_step_or_skip``). At world size 1 the loop is the one-card loop
+it was. A failing validation batch raises, and so does a failing figure:
+the JAX loop logs and skips both.
 """
 
 from __future__ import annotations
@@ -72,6 +83,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import parallel
 from ..config import Config, ModelConfig
 from ..data.collate import collate_batch
 from ..data.dataset import FilePathDataset
@@ -133,8 +145,8 @@ def _metrics_to_host(window) -> List[Dict[str, float]]:
     the window moved in one copy: the loop's only host sync of metrics,
     once per ``log_interval`` (per step under ``STYLISH_DEBUG_NANSTEP``)."""
     tensor_keys = sorted(k for k, v in window[0].items() if torch.is_tensor(v))
-    packed = torch.stack([torch.stack([m[k].float() for k in tensor_keys])
-                          for m in window]).cpu().numpy()
+    packed = parallel.all_mean(torch.stack([torch.stack([m[k].float() for k in tensor_keys])
+                                            for m in window])).cpu().numpy()
     rows = []
     for m, row in zip(window, packed):
         host = {k: float(v) for k, v in m.items() if not torch.is_tensor(v)}
@@ -154,7 +166,9 @@ def select_validation_samples(paths: List[str], count: int, force: List[str]) ->
 def save_git_state(out_dir: str) -> None:
     """Snapshot the checkout's git commit and diff into the stage dir
     (reference utils.py:617-624 ``git_state.txt``); outside a git checkout,
-    the package version."""
+    the package version. Rank 0 alone."""
+    if not parallel.is_writer():
+        return
     repo = osp.dirname(osp.dirname(osp.dirname(osp.abspath(__file__))))
     try:
         commit = subprocess.run(
@@ -174,14 +188,18 @@ def save_git_state(out_dir: str) -> None:
 
 
 def setup_stage_logging(out_dir: str) -> None:
+    """INFO to the console and DEBUG to the stage's ``train.log``; on the
+    ranks but 0, warnings to the console only."""
     os.makedirs(out_dir, exist_ok=True)
     logger.setLevel(logging.DEBUG)
     for h in list(logger.handlers):
         logger.removeHandler(h)
         h.close()
     sh = logging.StreamHandler()
-    sh.setLevel(logging.INFO)
+    sh.setLevel(logging.INFO if parallel.is_writer() else logging.WARNING)
     logger.addHandler(sh)
+    if not parallel.is_writer():
+        return
     fh = logging.FileHandler(osp.join(out_dir, "train.log"), encoding="utf-8")
     fh.setLevel(logging.DEBUG)
     fh.setFormatter(
@@ -249,8 +267,13 @@ class Trainer:
     def init_normalization(self, dataset: FilePathDataset, out_dir: str):
         """Compute or load dataset-wide log-mel and F0 stats."""
         cache = osp.join(out_dir, "normalization.json")
+        if not parallel.is_writer():  # rank 0 computes and writes them
+            parallel.barrier()
+            self.normalization = NormalizationStats.load(cache)
+            return
         if osp.isfile(cache):
             self.normalization = NormalizationStats.load(cache)
+            parallel.barrier()
             return
         to_mel = MelSpectrogram(
             n_mels=self.mc.n_mels, n_fft=self.mc.n_fft,
@@ -274,6 +297,7 @@ class Trainer:
         self.normalization = compute_stats_streaming(mel_iter(), pitch_iter())
         os.makedirs(out_dir, exist_ok=True)
         self.normalization.save(cache)
+        parallel.barrier()
         logger.info(
             "normalization: mel_log_mean=%.3f mel_log_std=%.3f",
             self.normalization.mel_log_mean, self.normalization.mel_log_std,
@@ -346,11 +370,13 @@ class Trainer:
                 self.writer.close()
             self.stage_manifests[stage] = self.manifest
             if stage == "alignment":
-                save_text_aligner_safetensors(
-                    self.data_path(self.config.dataset.alignment_model_path),
-                    state.aligner,
-                )
-                logger.info("saved alignment model")
+                if parallel.is_writer():
+                    save_text_aligner_safetensors(
+                        self.data_path(self.config.dataset.alignment_model_path),
+                        state.aligner,
+                    )
+                    logger.info("saved alignment model")
+                parallel.barrier()
                 return state
             stage = NEXT_STAGE.get(stage)
             if stage is None:
@@ -370,10 +396,11 @@ class Trainer:
         out_dir = osp.join(self.base_out_dir, stage)
         setup_stage_logging(out_dir)
         save_git_state(out_dir)
-        for name, model_dump in (("config.json", self.config),
-                                 ("model_config.json", self.mc)):
-            with open(osp.join(out_dir, name), "w", encoding="utf-8") as f:
-                f.write(model_dump.model_dump_json(indent=2))
+        if parallel.is_writer():
+            for name, model_dump in (("config.json", self.config),
+                                     ("model_config.json", self.mc)):
+                with open(osp.join(out_dir, name), "w", encoding="utf-8") as f:
+                    f.write(model_dump.model_dump_json(indent=2))
         return out_dir
 
     def run_alignment(self, state, train_ds, val_ds, train_bins, val_bins,
@@ -428,12 +455,17 @@ class Trainer:
                 if total_step % cfg.training.save_interval == 0:
                     save_checkpoint(out_dir, state, self.manifest, cfg, self.mc,
                                     self.normalization)
-            # also train on the val split (reference train.py:417-423)
+            # also train on the val split (reference train.py:417-423), the
+            # batches cut to a multiple of N, those below N dropped
             val_sampler = DynamicBatchSampler(
                 val_bins, table, seed=29, drop_last=False,
             )
+            n = parallel.world_size()
             for _bin, idxs in val_sampler:
-                items = [val_ds.load_segment(j) for j in idxs]
+                idxs = idxs[: len(idxs) // n * n] or idxs
+                if len(idxs) % n:
+                    continue
+                items = [val_ds.load_segment(j) for j in parallel.shard_rows(idxs)]
                 batch, paths = collate_batch(
                     items, hop_length=self.mc.hop_length, require_pitch=False,
                 )
@@ -459,22 +491,33 @@ class Trainer:
         device memory and the batch is skipped: the bin's batch size lowered
         for good (a stale prefetched batch larger than the bin's current size
         lowers nothing). An OOM after the step's first optimizer update began
-        lowers the bin and raises."""
+        lowers the bin and raises. Data parallel, the ranks decide together
+        (``parallel``'s protocol): the rank that runs out of memory announces
+        it, the others' next collective raises ``PeerStepFailed``, and every
+        rank skips the same global batch and lowers the same bin to a
+        multiple of N (or raises, after the first update)."""
         state.update_begun = False
         try:
-            return step_fn(state, batch)
+            metrics = step_fn(state, batch)
+            parallel.agree()  # a failure late in a peer's step is seen in this one
+            return metrics
         except Exception as exc:
-            if classify_step_failure(exc) != "oom":
+            peer = isinstance(exc, parallel.PeerStepFailed)
+            if not peer and classify_step_failure(exc) != "oom":
                 raise
-            size, planned = int(batch.audio_gt.shape[0]), table.get(time_bin)
+            if not peer:
+                parallel.announce_failure()
+            where = "another rank's step" if peer else "OOM"
+            n = parallel.world_size()
+            size, planned = int(batch.audio_gt.shape[0]) * n, table.get(time_bin)
             if size > planned:
-                logger.warning("OOM on stale prefetched batch (bin %d, size %d > planned "
-                               "%d); skipping", time_bin, size, planned)
+                logger.warning("%s on stale prefetched batch (bin %d, size %d > planned "
+                               "%d); skipping", where, time_bin, size, planned)
                 new_size = planned
             else:
-                new_size = table.shrink(time_bin)
-                logger.warning("OOM on bin %d at batch size %d; batch size lowered to %d",
-                               time_bin, size, new_size)
+                new_size = table.shrink(time_bin, multiple=n)
+                logger.warning("%s on bin %d at batch size %d; batch size lowered to %d",
+                               where, time_bin, size, new_size)
             if state.update_begun:
                 raise RuntimeError(
                     "OOM after the step's first optimizer update began: the training "
@@ -502,7 +545,8 @@ class Trainer:
         host = _metrics_to_host([metrics])[0]
         bad = [k for k, v in host.items() if not np.isfinite(v)]
         if bad:
-            dump = osp.join(out_dir, f"nan_batch_step{step}.npz")
+            rank = f"_rank{parallel.rank()}" if parallel.world_size() > 1 else ""
+            dump = osp.join(out_dir, f"nan_batch_step{step}{rank}.npz")
             fields = {f: getattr(batch, f) for f in batch._fields
                       if getattr(batch, f) is not None}
             np.savez(dump, paths=np.asarray(paths), time_bin=time_bin,
@@ -517,15 +561,18 @@ class Trainer:
 
     def _plan_table(self, stage, train_bins, out_dir) -> BatchSizeTable:
         """The stage's batch size per bin, capped by the bin's population
-        (tiny datasets would otherwise yield zero full batches)."""
+        (tiny datasets would otherwise yield zero full batches) and rounded
+        down to a multiple of the world size N, at least N (the JAX rule)."""
         plan = self.config.training_plan.get_stage(stage)
         table = BatchSizeTable(
             path=osp.join(out_dir, f"{stage}_batch_sizes.json"),
             probe_batch_max=plan.probe_batch_max,
         )
         table.plan(list(train_bins.keys()))
+        n = parallel.world_size()
         for b in list(table.sizes.keys()):
-            table.sizes[b] = max(min(table.sizes[b], len(train_bins.get(b, []))), 1)
+            size = min(table.sizes[b], len(train_bins.get(b, [])) or 1)
+            table.sizes[b] = max(size // n * n, n)
         table.save()
         return table
 
@@ -616,12 +663,29 @@ class Trainer:
         broadcast(avg, ctx.weights, self.writer, total_step, header=header)
         self.writer.add_scalar("train/lr", lr, total_step)
 
+    @staticmethod
+    def _val_chunks(val_bins, table):
+        """The validation batches (global segment indices): a bin's full
+        planned batch whole where it divides by N, otherwise chunks of N, a
+        ragged last chunk dropped (the JAX rule; at N = 1, a ragged bin
+        re-chunked to B = 1)."""
+        n = parallel.world_size()
+        for time_bin, idxs in DynamicBatchSampler(
+            val_bins, table, shuffle=False, drop_last=False,
+        ):
+            planned = table.get(time_bin)
+            if len(idxs) == planned and planned % n == 0:
+                yield idxs
+            else:
+                yield from (idxs[i:i + n] for i in range(0, len(idxs) - n + 1, n))
+
     def stage_validation(self, stage, state, ctx, val_ds, val_bins, table):
         """The stage's validator (``validate.VALIDATORS``) over the val split
-        at the planned batch sizes (a ragged bin re-chunked to B = 1); the
-        logged metrics are the means of the batch means, and the eval
-        samples' predicted audio is written as wav files, their log-mel
-        figures to TensorBoard. Updates ``manifest.best_loss``."""
+        at the planned batch sizes (``_val_chunks``); the logged metrics are
+        the means of the batch means, and the eval samples' predicted audio
+        (gathered to rank 0 from the ranks that hold them) is written as wav
+        files, their log-mel figures to TensorBoard. Updates
+        ``manifest.best_loss``."""
         step = self.manifest.current_total_step
         sample_paths = set(select_validation_samples(
             [s.wav_path for s in val_ds.segments],
@@ -629,21 +693,25 @@ class Trainer:
             self.config.validation.force_samples,
         ))
         metrics_acc = []
-        for time_bin, idxs in DynamicBatchSampler(
-            val_bins, table, shuffle=False, drop_last=False,
-        ):
-            chunks = [idxs] if len(idxs) == table.get(time_bin) else [[j] for j in idxs]
-            for chunk in chunks:
-                items = [val_ds.load_segment(j) for j in chunk]
-                batch, paths = collate_batch(items, hop_length=self.mc.hop_length,
-                                             require_pitch=True)
-                m, audio = VALIDATORS[stage](state, ctx, batch_to_device(batch, self.device))
-                metrics_acc.append(m)
-                for bi, p in enumerate(paths):
-                    if p in sample_paths:
-                        self.writer.add_audio(f"eval/{p}", audio[bi].float().cpu().numpy(),
-                                              step, self.mc.sample_rate)
-                        self._emit_mel_figures(p, batch.audio_gt[bi], audio[bi], step)
+        for chunk in self._val_chunks(val_bins, table):
+            items = [val_ds.load_segment(j) for j in parallel.shard_rows(chunk)]
+            batch, _ = collate_batch(items, hop_length=self.mc.hop_length,
+                                     require_pitch=True)
+            batch = batch_to_device(batch, self.device)
+            m, audio = VALIDATORS[stage](state, ctx, batch)
+            metrics_acc.append(m)
+            paths = [val_ds.segments[j].wav_path for j in chunk]
+            if not sample_paths.intersection(paths):
+                continue
+            with torch.no_grad():
+                audio, audio_gt = parallel.gather_rows(audio), parallel.gather_rows(batch.audio_gt)
+            if not parallel.is_writer():
+                continue
+            for bi, p in enumerate(paths):
+                if p in sample_paths:
+                    self.writer.add_audio(f"eval/{p}", audio[bi].float().cpu().numpy(),
+                                          step, self.mc.sample_rate)
+                    self._emit_mel_figures(p, audio_gt[bi], audio[bi], step)
         if not metrics_acc:
             return {}
         avg = self._mean_of_batch_means(metrics_acc)
@@ -676,10 +744,11 @@ class Trainer:
 
     @staticmethod
     def _mean_of_batch_means(metrics_acc) -> Dict[str, float]:
-        """Per key, the mean of the batches' device scalars (one host copy)."""
+        """Per key, the mean of the batches' device scalars, averaged over
+        the ranks (one collective, one host copy)."""
         keys = sorted(metrics_acc[0])
-        packed = torch.stack([torch.stack([m[k].float() for k in keys])
-                              for m in metrics_acc])
+        packed = parallel.all_mean(torch.stack([torch.stack([m[k].float() for k in keys])
+                                                for m in metrics_acc]))
         return combine_metrics(
             [dict(zip(keys, map(float, row))) for row in packed.cpu().numpy()])
 
@@ -703,25 +772,16 @@ class Trainer:
 
     def validate(self, state, ctx, val_ds, val_bins, table) -> Dict[str, float]:
         """CTC loss and forced-align confidence over the val split, at the
-        stage's planned batch sizes: a bin's full planned batch stays whole,
-        a ragged one is re-chunked to B = 1 (the JAX ``n_devices``). The
-        logged metric is the mean of the batch means. Updates
-        ``manifest.best_loss``."""
+        stage's planned batch sizes (``_val_chunks``). The logged metric is
+        the mean of the batch means. Updates ``manifest.best_loss``."""
         metrics_acc = []
-        for time_bin, idxs in DynamicBatchSampler(
-            val_bins, table, shuffle=False, drop_last=False,
-        ):
-            if len(idxs) == table.get(time_bin):
-                chunks = [idxs]
-            else:
-                chunks = [[j] for j in idxs]
-            for chunk in chunks:
-                items = [val_ds.load_segment(j) for j in chunk]
-                batch, _ = collate_batch(
-                    items, hop_length=self.mc.hop_length, require_pitch=False,
-                )
-                metrics_acc.append(validate_alignment(
-                    state, ctx, batch_to_device(batch, self.device)))
+        for chunk in self._val_chunks(val_bins, table):
+            items = [val_ds.load_segment(j) for j in parallel.shard_rows(chunk)]
+            batch, _ = collate_batch(
+                items, hop_length=self.mc.hop_length, require_pitch=False,
+            )
+            metrics_acc.append(validate_alignment(
+                state, ctx, batch_to_device(batch, self.device)))
         if not metrics_acc:
             return {}
         avg = self._mean_of_batch_means(metrics_acc)

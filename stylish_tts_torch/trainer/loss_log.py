@@ -5,7 +5,9 @@ total (``lr`` and the ``*_lr_mult`` diagnostics excluded), window means,
 logged and written to a SummaryWriter, or to a JSONL metrics file where
 ``torch.utils.tensorboard`` is missing. Eval audio goes to wav files under
 the stage directory (``samples/step_SSSSSSSSS/<segment>.wav``), where the
-JAX writer adds it to TensorBoard; figures go to TensorBoard only.
+JAX writer adds it to TensorBoard; figures go to TensorBoard only. Data
+parallel, rank 0 alone writes: on the other ranks the writer writes
+nothing.
 """
 
 from __future__ import annotations
@@ -18,16 +20,22 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from .. import parallel
+
 logger = logging.getLogger("stylish_tts_torch")
 
 
 class MetricsWriter:
-    """TensorBoard writer with a JSONL fallback."""
+    """TensorBoard writer with a JSONL fallback; on the ranks but 0, a
+    writer that writes nothing."""
 
     def __init__(self, out_dir: str):
         self.out_dir = out_dir
         self._tb = None
         self._jsonl = None
+        self._off = not parallel.is_writer()
+        if self._off:
+            return
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
@@ -38,6 +46,8 @@ class MetricsWriter:
             self._tb = SummaryWriter(osp.join(out_dir, "tensorboard"))
 
     def add_scalar(self, tag: str, value: float, step: int) -> None:
+        if self._off:
+            return
         if self._tb is not None:
             self._tb.add_scalar(tag, value, step)
         else:
@@ -48,9 +58,11 @@ class MetricsWriter:
 
     def add_audio(self, tag: str, audio, step: int, sample_rate: int) -> str:
         """Write ``audio`` (1-D) as a wav file named after the last part of
-        ``tag``; returns its path."""
+        ``tag``; returns its path (None on the ranks but 0)."""
         from ..data.wav import write_wav
 
+        if self._off:
+            return None
         name = osp.basename(tag)
         if not name.endswith(".wav"):
             name += ".wav"
@@ -64,7 +76,7 @@ class MetricsWriter:
         """A matplotlib figure to TensorBoard (which closes it); None (no
         matplotlib) is skipped, and without TensorBoard the figure is
         closed unwritten."""
-        if figure is None:
+        if figure is None or self._off:
             return
         if self._tb is not None:
             self._tb.add_figure(tag, figure, step)
@@ -74,6 +86,8 @@ class MetricsWriter:
             plt.close(figure)
 
     def close(self) -> None:
+        if self._off:
+            return
         if self._tb is not None:
             self._tb.close()
         else:

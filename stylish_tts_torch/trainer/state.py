@@ -27,18 +27,76 @@ it before each step and the step sets it where its first optimizer update
 begins. An out-of-memory failure before it leaves the state as it was but
 for the generators' draws; after it the state is partly updated (the JAX
 donated buffers), and the loop raises.
+
+Data parallel: every rank holds the whole state. The dropout and model
+generators (the aligner's one generator) are seeded with the rank's offset
+(``RANK_SEED_STRIDE``; rank 0 keeps the one-card seeds), the disc-index
+generator alike on every rank. ``state_dict`` is a collective there: it
+keeps every rank's generator states (``rank_generators``, in rank order),
+so that a run resumed at the same world size continues as the
+uninterrupted one; resumed at another world size, the weights, moments and
+counters are restored and the rank-offset generators re-derived from the
+saved ones and the rank (logged).
 """
 
 from __future__ import annotations
 
+import hashlib
+import logging
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
 
+from .. import parallel
 from ..models.models import STAGE_DISCRIMINATORS, STAGE_TRAIN_MODELS
 from .optim import init_disc_ema, make_optimizer
+
+logger = logging.getLogger("stylish_tts_torch")
+
+# the seed offset of each rank's dropout and model generators
+RANK_SEED_STRIDE = 1_000_003
+
+
+def _rank_seed(seed: int) -> int:
+    return seed + RANK_SEED_STRIDE * parallel.rank()
+
+
+def _gather_states(states: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
+    """Every rank's generator states (``name -> get_state()``), in rank
+    order (a collective)."""
+    names = sorted(states)
+    packed = parallel.gather_host(torch.cat([states[n] for n in names]))
+    sizes = [states[n].numel() for n in names]
+    return [dict(zip(names, row.split(sizes))) for row in packed]
+
+
+def _own_states(state: dict, one_card: Dict[str, torch.Tensor],
+                rank_offset: tuple) -> Dict[str, torch.Tensor]:
+    """The generator states this rank resumes with: its own where the
+    checkpoint was saved at this world size; otherwise those of rank 0 with
+    the ``rank_offset`` streams re-derived from them and the rank (returned
+    as None, for ``manual_seed`` with ``_derived_seed``)."""
+    saved = state.get("rank_generators") or [one_card]
+    if len(saved) == parallel.world_size():
+        return saved[parallel.rank()]
+    logger.warning("checkpoint saved at world size %d, resumed at %d: weights, moments "
+                   "and counters restored; generators %s re-derived for rank %d",
+                   len(saved), parallel.world_size(), list(rank_offset), parallel.rank())
+    return {k: (None if k in rank_offset else v) for k, v in saved[0].items()}
+
+
+def _derived_seed(saved: torch.Tensor) -> int:
+    digest = hashlib.sha256(saved.numpy().tobytes() + parallel.rank().to_bytes(4, "little"))
+    return int.from_bytes(digest.digest()[:8], "little")
+
+
+def _restore(generator: torch.Generator, own, saved0: torch.Tensor) -> None:
+    if own is None:
+        generator.manual_seed(_derived_seed(saved0))
+    else:
+        generator.set_state(own)
 
 
 @dataclass
@@ -64,6 +122,8 @@ class TrainState:
             "prior_count": self.prior_count,
             "generator": self.generator.get_state(),
             "step": self.step,
+            **({"rank_generators": _gather_states({"generator": self.generator.get_state()})}
+               if parallel.world_size() > 1 else {}),
         }
 
     def load_state_dict(self, state: dict) -> None:
@@ -73,7 +133,8 @@ class TrainState:
         self.optimizer.load_state_dict(state["optimizer"])
         for name in ("log_priors", "log_priors_sum", "prior_count"):
             setattr(self, name, state[name].to(device))
-        self.generator.set_state(state["generator"])
+        own = _own_states(state, {"generator": state["generator"]}, ("generator",))
+        _restore(self.generator, own["generator"], state["generator"])
         self.step = int(state["step"])
 
 
@@ -81,7 +142,7 @@ def create_train_state(aligner: torch.nn.Module, n_classes: int,
                        device, seed: int = 0) -> TrainState:
     aligner = aligner.to(device)
     generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
+    generator.manual_seed(_rank_seed(seed))
     return TrainState(
         aligner=aligner,
         optimizer=make_optimizer(aligner.parameters()),
@@ -106,6 +167,7 @@ class StageTrainState:
     update_begun: bool = False
 
     GENERATORS = ("dropout_generator", "model_generator", "disc_index_generator")
+    RANK_OFFSET = ("dropout_generator", "model_generator")
 
     def begin_stage(self, stage: str) -> None:
         """Fresh AdamW for the modules ``stage`` trains and its
@@ -121,9 +183,14 @@ class StageTrainState:
             "models": {k: m.state_dict() for k, m in self.models.items()},
             "optimizers": {k: o.state_dict() for k, o in self.optimizers.items()},
             "disc_ema": dict(self.disc_ema),
-            "generators": {g: getattr(self, g).get_state() for g in self.GENERATORS},
+            "generators": self._generator_states(),
             "step": self.step,
+            **({"rank_generators": _gather_states(self._generator_states())}
+               if parallel.world_size() > 1 else {}),
         }
+
+    def _generator_states(self) -> Dict[str, torch.Tensor]:
+        return {g: getattr(self, g).get_state() for g in self.GENERATORS}
 
     def load_state_dict(self, state: dict) -> None:
         """Restore in place from ``state_dict()``'s output (on any device).
@@ -141,8 +208,9 @@ class StageTrainState:
                 o.load_state_dict(state["optimizers"][k])
         self.disc_ema.update({k: v.to("cpu", torch.float32)
                               for k, v in state["disc_ema"].items()})
+        own = _own_states(state, state["generators"], self.RANK_OFFSET)
         for g in self.GENERATORS:
-            getattr(self, g).set_state(state["generators"][g])
+            _restore(getattr(self, g), own[g], state["generators"][g])
         self.step = int(state["step"])
 
 
@@ -152,7 +220,7 @@ def create_stage_train_state(models: Dict[str, nn.Module], device, stage: str = 
     gens = []
     for i, dev in enumerate((device, device, "cpu")):
         g = torch.Generator(device=dev)
-        g.manual_seed(seed * 3 + i)
+        g.manual_seed(seed * 3 + i if i == 2 else _rank_seed(seed * 3 + i))
         gens.append(g)
     state = StageTrainState(
         models=models,

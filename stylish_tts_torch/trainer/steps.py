@@ -57,6 +57,16 @@ loop does not carry on from.
 The JAX key's per-step splits become the state's generators; the
 ``parity_deterministic`` / ``parity_prior`` / ``forced_disc_index``
 switches are the JAX package's.
+
+Data parallel (``parallel``): each rank holds its rows of the global batch;
+the losses take their batch-wide statistics over the global batch (see
+``losses.py``; the CTC mean, the slm term and the raw LSGAN terms that move
+the discriminator EMAs included), the discriminator loss is scaled by the
+square root of the global B, the label priors merge by log-sum-exp and
+their counts by sum, and ``pmean_grads`` averages the gradients after every
+backward and before the nonfinite guard, so that every rank takes the same
+update and skips the same one. The sampled MRD is drawn alike on every rank
+and checked equal. At world size 1 all of this is the identity.
 """
 
 from __future__ import annotations
@@ -68,6 +78,7 @@ import numpy as np
 import torch
 
 from .. import losses as L
+from .. import parallel
 from ..dsp.mel import MelSpectrogram
 from ..dsp.multi_spectrogram import MultiSpectrogram
 from ..dsp.stft import fp32_island, stft
@@ -188,23 +199,27 @@ def make_alignment_step(ctx: StepContext):
 
         aligner.train()
         log_probs = aligner(mel, mel_lengths, generator=state.generator)
-        loss = ctc_loss_with_priors_cuda(
+        loss = parallel.global_mean(ctc_loss_with_priors_cuda(
             log_probs, mel_lengths, batch.text.to(torch.int32).contiguous(),
             batch.text_lengths.to(torch.int32).contiguous(),
             blank_id=ctx.blank_id, log_priors=state.log_priors,
             prior_scale=PRIOR_SCALE,
-        ) * ctx.weights.get("align_loss", 1.0)
+        )) * ctx.weights.get("align_loss", 1.0)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        parallel.pmean_grads([aligner])
         lr = cosine_lr(ctx.base_lr, state.step, ctx.stage_steps)
         state.update_begun = True
         apply_module_update(aligner, state.optimizer, lr)
 
-        # label-prior accumulation (logsumexp-merge)
+        # label-prior accumulation (logsumexp-merge; across the ranks too)
         with torch.no_grad():
             lse, count = ctc_ops.accumulate_label_priors(
                 log_probs.detach(), mel_lengths
             )
+            if parallel.world_size() > 1:
+                lse = torch.logsumexp(parallel.gather_rows(lse[None]), dim=0)
+                count = parallel.global_count(count)
             state.log_priors_sum = torch.logaddexp(state.log_priors_sum, lse)
             state.prior_count = state.prior_count + count
         state.step += 1
@@ -267,10 +282,12 @@ def _generator_phase_grads(state: StageTrainState, stage: str) -> None:
 
 
 def _update_trained(state: StageTrainState, stage: str, lr: float) -> None:
-    """AdamW on the modules ``stage`` trains, each through the nonfinite
-    guard (one host sync): the step's first optimizer update."""
-    state.update_begun = True
+    """AdamW on the modules ``stage`` trains, their gradients averaged over
+    the ranks, each through the nonfinite guard (one host sync): the step's
+    first optimizer update."""
     names = STAGE_TRAIN_MODELS[stage]
+    parallel.pmean_grads([state.models[n] for n in names])
+    state.update_begun = True
     flags = modules_finite([state.models[n] for n in names])
     for name, flag in zip(names, flags):
         apply_module_update(state.models[name], state.optimizers[name], lr, finite=flag)
@@ -285,11 +302,13 @@ def _begin_disc_phase(state: StageTrainState, stage: str) -> None:
 def _update_discriminators(state: StageTrainState, stage: str, total, raws, stepped,
                            lr: float, sqrt_b: float) -> dict:
     """Backward of the discriminator loss ``total`` x sqrt(B); AdamW on the
-    ``stepped`` discriminators at lr x their gap-aware multiplier, read from
-    the EMAs before the step (host syncs: their finite flags, then the raw
-    LSGAN terms ``raws`` that move the EMAs). Returns the multipliers of
-    every discriminator of ``stage`` as ``<name>_lr_mult``."""
+    ``stepped`` discriminators (their gradients averaged over the ranks) at
+    lr x their gap-aware multiplier, read from the EMAs before the step (host
+    syncs: their finite flags, then the raw LSGAN terms ``raws``, global-batch
+    means alike on every rank, that move the EMAs). Returns the multipliers
+    of every discriminator of ``stage`` as ``<name>_lr_mult``."""
     (total * sqrt_b).backward()
+    parallel.pmean_grads([state.models[n] for n in stepped])
     lr_mults = {f"{name}_lr_mult": float(L.disc_lr_multiplier(state.disc_ema[name],
                                                               DISC_SUB_COUNT[name]))
                 for name in STAGE_DISCRIMINATORS[stage]}
@@ -372,7 +391,8 @@ def make_acoustic_step(ctx: StepContext):
             disc_index = int(ctx.forced_disc_index)
         else:
             disc_index = int(torch.randint(3, (1,), generator=state.disc_index_generator))
-        sqrt_b = math.sqrt(batch.text.shape[0])
+            parallel.check_same("disc_index", disc_index)
+        sqrt_b = math.sqrt(batch.text.shape[0] * parallel.world_size())
         lr = cosine_lr(ctx.base_lr, state.step, ctx.stage_steps)
 
         # --- generator phase; the discriminators are frozen ---
@@ -404,9 +424,10 @@ def make_acoustic_step(ctx: StepContext):
                 if batch.slm_gt is not None:
                     from ..models.slm import wavlm_loss_cached
 
-                    metrics["slm"] = wavlm_loss_cached(state.wavlm, batch.slm_gt, pred_audio)
+                    slm = wavlm_loss_cached(state.wavlm, batch.slm_gt, pred_audio)
                 else:
-                    metrics["slm"] = ctx.slm_loss_fn(state.wavlm, audio_t, pred_audio)
+                    slm = ctx.slm_loss_fn(state.wavlm, audio_t, pred_audio)
+                metrics["slm"] = parallel.global_mean(slm)
         L.backwards_loss(metrics, ctx.weights).backward()
         _update_trained(state, "acoustic", lr)
 
@@ -448,7 +469,7 @@ def make_textual_step(ctx: StepContext):
             feats_t = ctx.multi_spec(audio_t)
             voiced = (pitch > 10.0).to(torch.float32)
             pitchcat = torch.stack([pitch * voiced, energy], dim=1)
-        sqrt_b = math.sqrt(batch.text.shape[0])
+        sqrt_b = math.sqrt(batch.text.shape[0] * parallel.world_size())
         lr = cosine_lr(ctx.base_lr, state.step, ctx.stage_steps)
 
         # --- generator phase; the acoustic modules and pitch_disc frozen ---
@@ -510,7 +531,7 @@ def make_duration_step(ctx: StepContext, duration_class_weights: torch.Tensor):
             style_mel = ctx.norm_mel(batch.audio_gt, ctx.to_style_mel)
             target_dur = batch.durations.to(torch.float32)
             targets = ctx.duration_processor.dur_to_class(batch.durations)
-        sqrt_b = math.sqrt(batch.text.shape[0])
+        sqrt_b = math.sqrt(batch.text.shape[0] * parallel.world_size())
         lr = cosine_lr(ctx.base_lr, state.step, ctx.stage_steps)
 
         training = not ctx.parity_deterministic

@@ -33,7 +33,12 @@ leaked = sorted(
 )
 assert not leaked, leaked
 from stylish_tts_torch.ops import ctc_cuda
-assert ctc_cuda._lib is None, "kernel library loaded at import time"
+assert not ctc_cuda._libs, "kernel library loaded at import time"
+for name in ("stylish_tts_torch.parallel", "stylish_tts_torch.parallel.mesh",
+             "stylish_tts_torch.utils.flops"):
+    assert name in names, name
+from stylish_tts_torch import parallel
+assert parallel.world_size() == 1, "a process group made at import time"
 print("imported", len(names))
 """
 
