@@ -196,9 +196,32 @@ Phases (any failure exits non-zero):
    CUDA kernel events counted; (e) the analytic FLOPs of the B = 16
    acoustic step (``utils/flops.py``; the sampled MRD as the mean of the
    three), its achieved TFLOP/s and MFU against the dense bf16 peak;
-13. print the synthesis, front-end, acoustic, later-stage, recipe,
-   ringformer, audiobook, imported and data-parallel summary lines (a line
-   saying that no multi-GPU scaling number exists before the last), the
+13. the synthesis programs per bucket (``export/programs.py``: CUDA
+   graphs), in phase 6's directory, on phase 8's voice and on phase 9's
+   ringformer package, each: (a) ``warmup`` (its count against
+   ``warmup_grid`` + ``fused_grid`` at the package's duration stats, wall
+   seconds, the graph pool's MB beside the source draws'); (b) the 8
+   synthesis lines, shortest first (``warmup`` captures the largest
+   first), through the
+   fused and the two-phase programs against the eager phase functions with
+   their per-row generators (bitwise expected, held within 1e-5 of the
+   eager peak); (c) per line the ms with programs and eager; (d) the
+   510-token call traced through its program and eagerly (device ms,
+   device operations, host launches, busy share;
+   ``chiprun_out/profile_speak_programs.json``, ``..._ringformer.json``)
+   and one graph replay timed alone; (e) RTF at B = 1 and at B = 8 (the
+   batch's programs against the eager batch); (f) a miss at a fused bucket
+   outside the grid (speed 0.5): its ms, the next call's and the eager
+   call's; (g) on the FreeGAN voice, the acoustic phase at (32, 100) as a
+   ``torch.export`` program through ``convert --exported-program``, loaded
+   and run on the card against the eager phase (1e-5 of its peak; the
+   ringformer's is held on the CPU, tests/test_torch_programs.py); then (h) in a
+   child (``--capture-fails``), a program whose function reads a value back
+   must raise at capture;
+14. print the synthesis, front-end, acoustic, later-stage, recipe,
+   ringformer, audiobook, imported, data-parallel and programs summary
+   lines (a line saying that no multi-GPU scaling number exists before
+   the data-parallel one), the
    ``kernels`` JSON line (``launches``: the audiobook ``train-align``'s;
    ``launches_by_path``: that, the front end's, phase 2's, the imported
    voice's and the data-parallel phase's), then the device line last.
@@ -3582,6 +3605,8 @@ def child_main(argv) -> int:
         result = ctc_checked(torch, tuple(map(int, args)))
     elif flag == "--dp-rank":
         result = dp_rank_main(torch, int(args[0]), args[1], args[2], args[3])
+    elif flag == "--capture-fails":
+        result = capture_fails(torch)
     else:
         fail(f"unknown flag {flag}")
     Path(out).write_text(json.dumps(result), encoding="utf-8")
@@ -4308,6 +4333,444 @@ def phase_data_parallel(torch, work: Path, card: str, align_batch, main_shape) -
     return report
 
 
+# ---------------------------------------------------------------- phase 13
+
+# a program's waveform against the eager call's (per-row generators), as a
+# share of the eager waveform's peak: the expectation is bitwise (the same
+# kernels in the same order, no cuDNN autotuning)
+PROGRAM_RTOL = 1e-5
+N_PROGRAM_TIMED = 3
+MISS_SPEED = 0.5  # a fused frame bucket outside the grid warmed for speed 1
+MISS_LINE = 3  # the 120-token line
+EXPORT_RTOL = 1e-5  # the exported program against the eager acoustic phase
+HOST_LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                    "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                    "cudaMemsetAsync")
+
+
+def eager_speech(pkg, tokens, styles, fused=None, speed=1.0):
+    """``generate_speech`` composed from the eager phase functions (the
+    per-row generators, every kernel launched from Python): what the
+    programs replace."""
+    from stylish_tts_torch.export.package import frame_bucket
+
+    texts, lengths = pkg._texts([tokens])
+    sp, pe, du = (pkg._tensor(s)[None] for s in styles)
+    hop = pkg.mc.hop_length * pkg.mc.coarse_multiplier
+    f_fused = pkg._fused_frame_bucket(tokens.shape[0], speed)
+    if fused is None:
+        fused = f_fused is not None
+    if fused:
+        audio, totals = pkg.fused(texts, lengths, du, pe, sp, 1.0 / speed, f_fused)
+        return audio[0, :int(totals[0]) * hop].cpu().numpy()
+    durations = pkg.durations(texts, lengths, du).cpu().numpy() / speed
+    total = int(round(float(durations.sum())))
+    audio = pkg.acoustic(texts, lengths, pkg._tensor(durations), pe, sp, frame_bucket(total))
+    return audio[0, :total * hop].cpu().numpy()
+
+
+def eager_batch(pkg, token_lists, styles):
+    """``generate_speech_batch`` from the eager phase functions."""
+    import numpy as np
+
+    from stylish_tts_torch.export.package import frame_bucket
+
+    b = len(token_lists)
+    texts, lengths = pkg._texts(token_lists)
+    sp, pe, du = (pkg._tensor(np.broadcast_to(np.asarray(s, np.float32),
+                                              (b, pkg.mc.style_dim))) for s in styles)
+    durations = pkg.durations(texts, lengths, du).cpu().numpy()
+    totals = np.round(durations.sum(axis=1)).astype(int)
+    audio = pkg.acoustic(texts, lengths, pkg._tensor(durations), pe, sp,
+                         frame_bucket(int(totals.max()))).cpu().numpy()
+    hop = pkg.mc.hop_length * pkg.mc.coarse_multiplier
+    return [audio[i, :totals[i] * hop] for i in range(b)]
+
+
+def wall_ms(torch, fn, n=N_PROGRAM_TIMED):
+    """Median host-clock ms of ``fn`` (which ends reading its audio back)."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def wave_err(got, ref, what):
+    """max |got - ref| over ref's peak; fails above PROGRAM_RTOL."""
+    import numpy as np
+
+    if got.shape != ref.shape:
+        fail(f"{what}: {got.shape[0]} samples from the program, {ref.shape[0]} eager")
+    peak = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max()) / max(peak, 1e-30)
+    if not (np.isfinite(got).all() and peak > 0 and err <= PROGRAM_RTOL):
+        fail(f"{what}: program vs eager {err:.3e} of the peak {peak:.4g} "
+             f"(<= {PROGRAM_RTOL})")
+    return err
+
+
+def count_programs(pkg) -> int:
+    return sum(len(entry) for cache in (pkg._duration_fns, pkg._acoustic_fns,
+                                        pkg._fused_fns) for entry in cache.values())
+
+
+def traced(torch, fn):
+    """``fn`` under ``torch.profiler``: device ms and device operations
+    (kernels, copies, fills: the CUDA events of the trace) and the host's
+    launch calls (the runtime's launch, graph launch, copy and fill APIs)."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not device:  # kernels only reachable through the CPU ops that launched them
+        device = [k for e in prof.events() if e.device_type == DeviceType.CPU
+                  for k in e.kernels]
+    host = sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
+               and e.name in HOST_LAUNCH_APIS)
+    graphs = sum(1 for e in prof.events() if e.name == "cudaGraphLaunch")
+    span = (lambda e: e.duration) if device and not hasattr(device[0], "time_range") \
+        else (lambda e: e.time_range.elapsed_us())
+    return {"device_ms": sum(span(e) for e in device) / 1e3,
+            "device_ops": len(device), "host_launches": host, "graph_launches": graphs}
+
+
+def replay_ms(torch, program, n=5):
+    """Median device ms of one graph replay (CUDA events around it)."""
+    times = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        program.graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def programs_warmup(torch, pkg):
+    """(a): ``warmup`` at the package's duration stats; its count against
+    ``warmup_grid`` + ``fused_grid``; wall s; the pool's MB (the segments
+    of the allocator's snapshot in the package's pool, and the MB the
+    programs' outputs hold there), beside the source draws' MB (outside
+    the pool) and the card's reserved memory that warmup added."""
+    import gc
+
+    from stylish_tts_torch.export.package import TEXT_BUCKETS, fused_grid, warmup_grid
+
+    stats = pkg.duration_stats
+    if not stats:
+        fail("the package carries no duration stats: warmup builds no fused program")
+    grid = warmup_grid(TEXT_BUCKETS, stats)
+    fused = fused_grid(TEXT_BUCKETS, stats["frames_per_token_p95"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    built = pkg.warmup()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if built != len(grid) + len(fused):
+        fail(f"warmup built {built} programs, the grid has {len(grid)} + {len(fused)}")
+    programs = [p for cache in (pkg._duration_fns, pkg._acoustic_fns, pkg._fused_fns)
+                for entry in cache.values() for p in entry.values()]
+    if any(p.graph is None for p in programs):
+        fail("a program on the card holds no CUDA graph")
+    gc.collect()
+    torch.cuda.empty_cache()
+    added = torch.cuda.memory_reserved() - reserved0
+    outside = sum(t.numel() * t.element_size() for d in pkg._source_draws.values()
+                  for t in d if t is not None)
+    pool = [seg for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id") or ()) == tuple(pkg._pool or ())]
+    if not pool:
+        fail("the allocator's snapshot holds no segment of the package's graph pool")
+    return {"built": built, "acoustic": len(grid), "fused": len(fused),
+            "duration": len(pkg._duration_fns), "seconds": seconds,
+            "reserved_mb": added / 2**20, "draws_mb": outside / 2**20,
+            "pool_mb": sum(seg["total_size"] for seg in pool) / 2**20,
+            "pool_segments": len(pool),
+            "pool_allocated_mb": sum(seg["allocated_size"] for seg in pool) / 2**20}
+
+
+def programs_lines(torch, pkg, pack, lines):
+    """(b) and (c): every line, shortest first (``warmup`` captured the
+    largest first), through the fused and the two-phase programs against
+    the eager composition; then per line the ms of both, fused as
+    ``speak`` takes it; (e) RTF at B = 1."""
+    from stylish_tts_torch.tts.voicepack import lookup_static_style
+
+    sr = pkg.mc.sample_rate
+    errs, rows = [], []
+    before = count_programs(pkg)
+    for line in lines:
+        tokens = pkg.tokenize(line)
+        styles = lookup_static_style(pack, tokens.shape[0])
+        for fused in (True, False):
+            got = pkg.generate_speech(tokens, *styles, fused=fused)
+            ref = eager_speech(pkg, tokens, styles, fused=fused)
+            errs.append(wave_err(got, ref, f"{tokens.shape[0]}-token line, "
+                                           f"{'fused' if fused else 'two-phase'}"))
+    built_by_lines = count_programs(pkg) - before
+    for line in lines:
+        tokens = pkg.tokenize(line)
+        styles = lookup_static_style(pack, tokens.shape[0])
+        audio = pkg.generate_speech(tokens, *styles)
+        rows.append({"tokens": int(tokens.shape[0]), "audio_s": audio.shape[0] / sr,
+                     "programs_ms": wall_ms(torch, lambda: pkg.generate_speech(
+                         tokens, *styles)),
+                     "eager_ms": wall_ms(torch, lambda: eager_speech(pkg, tokens, styles))})
+    audio_s = sum(r["audio_s"] for r in rows)
+    return {"max_err_of_peak": max(errs), "compared": len(errs),
+            "built_by_lines": built_by_lines, "lines": rows,
+            "rtf_b1": sum(r["programs_ms"] for r in rows) / 1e3 / audio_s,
+            "eager_rtf_b1": sum(r["eager_ms"] for r in rows) / 1e3 / audio_s}
+
+
+def programs_batch(torch, pkg, pack):
+    """(e) RTF at B = 8: ``generate_speech_batch`` through its programs
+    (built on its first call) against the eager composition."""
+    import numpy as np
+
+    from stylish_tts_torch.tts.voicepack import lookup_static_style
+
+    tokens = [pkg.tokenize(line) for line in speak_lines(4, BATCH_TOKENS)]
+    styles = [np.stack(s) for s in zip(*(lookup_static_style(pack, t.shape[0])
+                                         for t in tokens))]
+    wavs = pkg.generate_speech_batch(tokens, *styles)
+    refs = eager_batch(pkg, tokens, styles)
+    err = max(wave_err(w, r, f"batch row {i}") for i, (w, r) in enumerate(zip(wavs, refs)))
+    audio_s = sum(w.shape[0] for w in wavs) / pkg.mc.sample_rate
+    ms = wall_ms(torch, lambda: pkg.generate_speech_batch(tokens, *styles))
+    eager = wall_ms(torch, lambda: eager_batch(pkg, tokens, styles))
+    return {"max_err_of_peak": err, "audio_s": audio_s, "programs_ms": ms,
+            "eager_ms": eager, "rtf": ms / 1e3 / audio_s, "eager_rtf": eager / 1e3 / audio_s}
+
+
+def programs_profile(torch, pkg, pack, rows, lines, card, name):
+    """(d) the shortest and the longest line's call (fused, as ``speak``
+    takes it) under the profiler, through its program and eager: device
+    ms, device operations, host launches, busy share (device ms over the
+    untraced call's ms, ``rows``' (c) medians); one graph replay of each
+    between CUDA events."""
+    from stylish_tts_torch.tts.voicepack import lookup_static_style
+
+    out = {"card": card}
+    for which, i in (("shortest", 0), ("longest", len(lines) - 1)):
+        tokens = pkg.tokenize(lines[i])
+        styles = lookup_static_style(pack, tokens.shape[0])
+        F = pkg._fused_frame_bucket(tokens.shape[0], 1.0)
+        program = pkg._fused_fns[(pkg._texts([tokens])[0].shape[1], F)][1]
+        call = {"tokens": int(tokens.shape[0]), "frame_bucket": F}
+        for path, fn, key in (
+                ("programs", lambda: pkg.generate_speech(tokens, *styles), "programs_ms"),
+                ("eager", lambda: eager_speech(pkg, tokens, styles), "eager_ms")):
+            fn()
+            row = traced(torch, fn)
+            if row["device_ms"] <= 0:
+                fail(f"the trace of the {path} call holds no device time")
+            row["call_ms"] = rows[i][key]
+            row["busy_share"] = row["device_ms"] / row["call_ms"]
+            call[path] = row
+        call["programs"]["replay_ms"] = replay_ms(torch, program)
+        if call["programs"]["graph_launches"] < 1:
+            fail("the program's call launched no CUDA graph")
+        out[which] = call
+    OUT.mkdir(exist_ok=True)
+    (OUT / f"profile_speak_programs{name}.json").write_text(json.dumps(out, indent=1))
+    return out
+
+
+def programs_miss(torch, pkg, pack, line):
+    """(f) a request at a fused bucket outside the grid (speed 0.5): the
+    miss's ms (draws, warm-up run, capture, replay), the next call's, and
+    the eager call's at the same bucket; one program added."""
+    from stylish_tts_torch.tts.voicepack import lookup_static_style
+
+    tokens = pkg.tokenize(line)
+    styles = lookup_static_style(pack, tokens.shape[0])
+    L = pkg._texts([tokens])[0].shape[1]
+    F = pkg._fused_frame_bucket(tokens.shape[0], MISS_SPEED)
+    if (L, F) in pkg._fused_fns:
+        fail(f"the miss bucket ({L}, {F}) is in the warmed grid")
+    before = count_programs(pkg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pkg.generate_speech(tokens, *styles, speed=MISS_SPEED)
+    torch.cuda.synchronize()
+    miss_ms = (time.perf_counter() - t0) * 1e3
+    if count_programs(pkg) != before + 1 or (L, F) not in pkg._fused_fns:
+        fail("a miss did not build exactly one program")
+    err = wave_err(got, eager_speech(pkg, tokens, styles, speed=MISS_SPEED), "the miss")
+    return {"bucket": [L, F], "miss_ms": miss_ms, "max_err_of_peak": err,
+            "hit_ms": wall_ms(torch, lambda: pkg.generate_speech(tokens, *styles,
+                                                                  speed=MISS_SPEED)),
+            "eager_ms": wall_ms(torch, lambda: eager_speech(pkg, tokens, styles,
+                                                           speed=MISS_SPEED))}
+
+
+def programs_exported(torch, pkg, pkg_dir, convert_args=None):
+    """(g) the acoustic phase at (32, 100) as a ``torch.export`` program,
+    written by ``convert --exported-program`` (``convert_args``: the CLI's
+    config and checkpoint, into a new package directory) or by the function
+    it calls, loaded, and run on the card against the eager acoustic phase
+    (its per-row generators)."""
+    from stylish_tts_torch.export import package as package_module
+
+    t0 = time.perf_counter()
+    if convert_args is not None:
+        pkg_dir = pkg_dir.parent / (pkg_dir.name + "_exported")
+        cli(torch, "convert", *convert_args, "--out", str(pkg_dir), "--exported-program")
+        path = package_module.exported_program_path(str(pkg_dir))
+    else:
+        path = package_module._emit_exported_program(str(pkg_dir), "cuda")
+    seconds = time.perf_counter() - t0
+    if convert_args is not None:  # the eager side from the same package directory
+        from stylish_tts_torch.export.package import InferencePackage
+
+        pkg = InferencePackage(str(pkg_dir), device="cuda")
+    program = torch.export.load(path).module()
+    _, args = pkg._acoustic_module_and_args(32, 100)
+    with torch.no_grad():
+        out = program(*args)
+        ref = pkg.acoustic(*args[:5], 100)
+    peak = float(ref.abs().max())
+    err = float((out - ref).abs().max()) / max(peak, 1e-30)
+    if not (out.is_cuda and peak > 0 and err <= EXPORT_RTOL):
+        fail(f"the exported program on the card: {err:.3e} of the eager peak {peak:.4g} "
+             f"(<= {EXPORT_RTOL}), on {out.device}")
+    return {"seconds": seconds, "max_err_of_peak": err, "mb": Path(path).stat().st_size / 2**20,
+            "via": "cli" if convert_args is not None else "function"}
+
+
+def capture_fails(torch) -> dict:
+    """(h), in a child process: a program whose function reads a value back
+    (``float(t.sum())``: a host sync) must raise at its capture; the card
+    works after it."""
+    from stylish_tts_torch.export.programs import BucketProgram
+
+    x = torch.ones(4, device="cuda")
+    raised = None
+    try:
+        BucketProgram(lambda t: t * float(t.sum()), (x,))
+    except Exception as e:  # noqa: BLE001 - what the capture raised is the result
+        raised = f"{type(e).__name__}: {str(e).strip().splitlines()[0][:200]}"
+    return {"raised": raised, "card_usable_after": float((x * 2).sum()) == 8.0}
+
+
+def programs_family(torch, name, pkg_dir, voicepack, card, convert_args=None):
+    """Phase 13 (a)-(g) on one package: see the module docstring."""
+    from stylish_tts_torch.export.package import InferencePackage
+    from stylish_tts_torch.tts.voicepack import load_voicepack
+
+    t0 = time.time()
+    pkg = InferencePackage(str(pkg_dir), device="cuda")
+    pack = load_voicepack(str(voicepack))
+    lines = speak_lines(2, SPEAK_TOKENS)
+    report = {"warmup": programs_warmup(torch, pkg)}
+    log(f"programs ({name}) warmup: {json.dumps(report['warmup'])}")
+    report["lines"] = programs_lines(torch, pkg, pack, lines)
+    log(f"programs ({name}) lines: max err {report['lines']['max_err_of_peak']:.3e}, built "
+        f"{report['lines']['built_by_lines']}")
+    report["batch8"] = programs_batch(torch, pkg, pack)
+    report["profile"] = programs_profile(torch, pkg, pack, report["lines"]["lines"], lines,
+                                         card, "" if name == "freegan" else "_" + name)
+    report["miss"] = programs_miss(torch, pkg, pack, lines[MISS_LINE])
+    if convert_args is not None:  # the ringformer's program: tests/test_torch_programs.py
+        report["exported"] = programs_exported(torch, pkg, Path(pkg_dir), convert_args)
+    report["programs"] = count_programs(pkg)
+    report["wall_s"] = time.time() - t0
+    w, ln = report["warmup"], report["lines"]
+    log(f"programs ({name}): warmup {w['built']} (acoustic {w['acoustic']} + fused "
+        f"{w['fused']}; {w['duration']} duration) in {w['seconds']:.2f} s, pool "
+        f"{w['pool_mb']:.1f} MB, draws {w['draws_mb']:.1f} MB; {ln['compared']} calls vs "
+        f"eager, max {ln['max_err_of_peak']:.3e} of the peak; RTF B=1 {ln['rtf_b1']:.5f} "
+        f"(eager {ln['eager_rtf_b1']:.5f}), B=8 {report['batch8']['rtf']:.5f} (eager "
+        f"{report['batch8']['eager_rtf']:.5f})")
+    log(f"programs ({name}) per line ms (programs / eager): "
+        + ", ".join(f"{r['tokens']}: {r['programs_ms']:.2f} / {r['eager_ms']:.2f}"
+                    for r in ln["lines"]))
+    for pr in (report["profile"]["shortest"], report["profile"]["longest"]):
+        pg, eg = pr["programs"], pr["eager"]
+        log(f"programs ({name}) {pr['tokens']}-token call: programs {pg['call_ms']:.2f} ms, "
+            f"device {pg['device_ms']:.2f} ms in {pg['device_ops']} ops, "
+            f"{pg['host_launches']} host launches, busy {pg['busy_share']:.3f}, replay "
+            f"{pg['replay_ms']:.2f} ms; eager {eg['call_ms']:.2f} ms, device "
+            f"{eg['device_ms']:.2f}, {eg['host_launches']} host launches, busy "
+            f"{eg['busy_share']:.3f}")
+    m = report["miss"]
+    log(f"programs ({name}) miss at {m['bucket']}: {m['miss_ms']:.1f} ms (then "
+        f"{m['hit_ms']:.2f}; eager {m['eager_ms']:.2f})")
+    if "exported" in report:
+        ex = report["exported"]
+        log(f"programs ({name}) exported program ({ex['via']}) {ex['seconds']:.1f} s, "
+            f"{ex['mb']:.1f} MB, {ex['max_err_of_peak']:.3e} of the peak")
+    return report
+
+
+def programs_summary(programs: dict, card: str) -> dict:
+    """The ``programs`` summary line of phase 13's report."""
+    return {
+        "card": card, "wall_s": programs["wall_s"],
+        "capture_failure_raised": programs["capture_fails"]["raised"],
+        **{f"{f}_{k}": v for f in ("freegan", "ringformer") for k, v in {
+            "warmup_built": programs[f]["warmup"]["built"],
+            "warmup_s": programs[f]["warmup"]["seconds"],
+            "pool_mb": programs[f]["warmup"]["pool_mb"],
+            "draws_mb": programs[f]["warmup"]["draws_mb"],
+            "max_err_of_peak": max(programs[f][k]["max_err_of_peak"]
+                                   for k in ("lines", "batch8", "miss")),
+            "line_ms": {r["tokens"]: [r["programs_ms"], r["eager_ms"]]
+                        for r in programs[f]["lines"]["lines"]},
+            "rtf_b1": [programs[f]["lines"]["rtf_b1"], programs[f]["lines"]["eager_rtf_b1"]],
+            "rtf_b8": [programs[f]["batch8"]["rtf"], programs[f]["batch8"]["eager_rtf"]],
+            **{f"{w}_call": {p: {k: programs[f]["profile"][w][p][k] for k in (
+                "call_ms", "device_ms", "device_ops", "host_launches", "busy_share")}
+                for p in ("programs", "eager")} for w in ("shortest", "longest")},
+            **{f"{w}_replay_ms": programs[f]["profile"][w]["programs"]["replay_ms"]
+               for w in ("shortest", "longest")},
+            "miss_ms": [programs[f]["miss"]["miss_ms"], programs[f]["miss"]["hit_ms"],
+                        programs[f]["miss"]["eager_ms"]]}.items()},
+        "exported_err_of_peak": programs["freegan"]["exported"]["max_err_of_peak"],
+        "exported_s": programs["freegan"]["exported"]["seconds"]}
+
+
+def phase_programs(torch, work: Path, card: str):
+    """Phase 13: the programs per bucket on phase 8's voice (FreeGAN, full
+    ``ModelConfig()``, duration stats) and phase 9's ringformer package;
+    a capture that fails must raise (child)."""
+    import gc
+
+    t0 = time.time()
+    report = {}
+    stage_dir = work / "acoustic_out" / "duration"
+    convert_args = ["--config", str(work / "acoustic.yml"), "--model-config",
+                    str(work / "acoustic_model.yml"), "--checkpoint",
+                    str(stage_dir / checkpoint_dirs(stage_dir)[-1])]
+    for name, pkg_dir, voicepack, args in (
+            ("freegan", work / "pkg", work / "voicepack.safetensors", convert_args),
+            ("ringformer", work / "ringformer" / "pkg",
+             work / "ringformer" / "voicepack.safetensors", None)):
+        report[name] = programs_family(torch, name, pkg_dir, voicepack, card, args)
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["capture_fails"] = child(torch, "--capture-fails")
+    if not report["capture_fails"]["raised"] or not report["capture_fails"]["card_usable_after"]:
+        fail(f"a capture with a host sync: {report['capture_fails']}")
+    report["wall_s"] = time.time() - t0
+    log(f"programs phase: {report['wall_s']:.1f} s; a failing capture raised "
+        f"{report['capture_fails']['raised']}")
+    return report
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         return child_main(sys.argv[1:])
@@ -4374,6 +4837,8 @@ def main() -> int:
         lap("11_imported")
         data_parallel = phase_data_parallel(torch, Path(tmp), card, batch, main_shape)
         lap("12_data_parallel")
+        programs = phase_programs(torch, Path(tmp), card)
+        lap("13_programs")
     front_launches = front["train_align"]["launches"]
     if not all(front_launches.values()):
         fail(f"a CTC kernel of the front end's train-align never launched: {front_launches}")
@@ -4410,7 +4875,8 @@ def main() -> int:
               "timings": timings, "frame_fit": fit, "kernels": kernels,
               "front_end": front, "synthesis": synthesis, "acoustic": acoustic,
               "recipe": recipe, "ringformer": ringformer, "audiobook": audiobook,
-              "imported": imported, "data_parallel": data_parallel, "phase_s": phase_s,
+              "imported": imported, "data_parallel": data_parallel, "programs": programs,
+              "phase_s": phase_s,
               "wall_s": time.time() - t_start}
     log("phase wall s: " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}))
     OUT.mkdir(exist_ok=True)
@@ -4616,6 +5082,7 @@ def main() -> int:
         "flops_acoustic_b16": dp["flops"]["flops"],
         "achieved_tflops": dp["flops"]["achieved_tflops"],
         "mfu_vs_dense_bf16": dp["flops"]["mfu_vs_dense_bf16"]}}), flush=True)
+    print(json.dumps({"programs": programs_summary(programs, card)}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

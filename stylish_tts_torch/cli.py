@@ -10,7 +10,8 @@ or RMVPE from a local ``--rmvpe-weights`` file), ``train-align`` (with
 Every command that computes runs on ``--device cuda`` unless told
 ``--device cpu``, and raises where CUDA is missing; ``import-torch``,
 ``convert``, ``dataset-from-audiobook`` and ``prepare-book`` are file and
-text work on the CPU and take no device.
+text work on the CPU and take no device (``convert --exported-program``
+traces its program on ``--device``, ``cuda`` unless told ``cpu``).
 
 ``train-align`` and ``train`` run data-parallel under ``torchrun
 --standalone --nproc-per-node N -m stylish_tts_torch.cli ...``: one process
@@ -394,11 +395,18 @@ def import_torch(config_path, model_config_path, checkpoint, out_dir):
 @click.option("--checkpoint", required=True, type=click.Path(exists=True),
               help="checkpoint directory of the acoustic, textual or duration stage")
 @click.option("--out", "out_dir", required=True, type=click.Path())
-def convert(config_path, model_config_path, checkpoint, out_dir):
+@click.option("--exported-program", "exported_program", is_flag=True, default=False,
+              help="also write the acoustic phase at (32, 100) as a torch.export "
+                   "program, exported_program/acoustic_L32_F100.pt2 (the JAX "
+                   "--stablehlo)")
+@click.option("--device", default="cuda", show_default=True,
+              help="torch device the exported program is traced on (and runs on); "
+                   "read only with --exported-program")
+def convert(config_path, model_config_path, checkpoint, out_dir, exported_program, device):
     """Package a checkpoint for inference: the six inference modules in the
     JAX layout, the model config, and the normalization, pitch and duration
-    stats. File work on the CPU. The JAX --stablehlo option (XLA graphs) has
-    no counterpart."""
+    stats. File work on the CPU; ``--exported-program`` also traces the
+    acoustic phase on ``--device`` and saves it."""
     from .data.caches import load_cache
     from .export.package import duration_stats_from_cache, export_checkpoint, pitch_log2_stats
     from .trainer.checkpoint import load_stage_models
@@ -413,7 +421,8 @@ def convert(config_path, model_config_path, checkpoint, out_dir):
                       if osp.isfile(align_path) else None)
     export_checkpoint(models, model_config, norm, out_dir,
                       pitch_log2_mean=pitch_log2_mean, pitch_log2_std=pitch_log2_std,
-                      duration_stats=duration_stats)
+                      duration_stats=duration_stats,
+                      emit_exported_program=exported_program, device=device)
     click.echo(f"wrote inference package to {out_dir}")
 
 
@@ -471,7 +480,9 @@ def tts_cli():
               help="torch device; 'cpu' to synthesise on the CPU")
 def speak(package_dir, voicepack_path, text_path, out_path, speed, device):
     """Synthesize a document: one line per utterance, each normalised to
-    -25 LUFS, concatenated."""
+    -25 LUFS, concatenated. Each line runs the program of its buckets (a
+    CUDA graph on the card), built at the first line that needs it and
+    replayed from then on."""
     from .data.wav import write_wav
     from .export.package import InferencePackage
     from .tts.loudness import normalize_loudness

@@ -103,6 +103,15 @@ def inverse_basis(n_fft: int, win_length: int, uniform: bool,
     return basis.to(device=device, dtype=torch.float32).contiguous()
 
 
+@functools.lru_cache(maxsize=16)
+@torch.inference_mode(False)
+def window_square(win_length: int, n_fft: int, device: torch.device) -> torch.Tensor:
+    """The padded Hann window squared, float32 on ``device``, made once (so
+    that ``istft`` on the card copies nothing from the host per call)."""
+    return torch.square(hann_window_padded(win_length, n_fft)).to(
+        device=device, dtype=torch.float32)
+
+
 def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
     """Overlap-add (B, T, n_fft) frames at ``hop`` -> (B, (T-1)*hop + n_fft).
 
@@ -166,8 +175,7 @@ def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int,
     wav = overlap_add(torch.matmul(spec.transpose(1, 2), basis), hop_length)
     if normalize_window:
         n_frames = real.shape[-1]
-        wss = torch.square(hann_window_padded(win_length, n_fft)).to(
-            device=spec.device, dtype=torch.float32)
+        wss = window_square(win_length, n_fft, spec.device)
         envelope = overlap_add(wss.expand(1, n_frames, n_fft), hop_length)
         wav = wav / torch.clamp_min(envelope, 1e-11)
     if center:

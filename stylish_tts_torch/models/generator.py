@@ -17,7 +17,10 @@ The sine source draws its initial phases and noise from one
 batch around it; synthesis), from one generator for the whole batch
 (training), or from the global generator when given none;
 ``deterministic_prior`` zeroes both, and ``prior`` injects a precomputed
-excitation (no two frameworks share an RNG stream). The excitation is a
+excitation (no two frameworks share an RNG stream). ``source_draws``
+carries the draws already made (``SineSource.draw``: the same numbers the
+generators would give, in the same order), so that a captured CUDA graph
+or an exported program takes them as an input. The excitation is a
 constant of the backward pass (stop-gradient, as in JAX), and the head's
 atan2, exp and iSTFT run in float32 under mixed precision. In ``train()``
 mode the conformer's dropout (0.2) draws from ``dropout_generator``.
@@ -49,6 +52,15 @@ from .convnext import GeneratorConvNeXtBlock
 
 
 SourceGenerator = Optional[Union[torch.Generator, Sequence[torch.Generator]]]
+
+
+class SourceDraws(NamedTuple):
+    """The random numbers a harmonic source consumes: the initial phases
+    (B, n_harm) (the ringformer's pcph: (B, 1)) and the FreeGAN sine
+    source's noise (B, n_harm, frames * hop)."""
+
+    rand_ini: torch.Tensor
+    noise: Optional[torch.Tensor] = None
 
 
 def _draw(fn, shape, generator: SourceGenerator, device) -> torch.Tensor:
@@ -87,8 +99,20 @@ class SineSource(nn.Module):
         self.voiced_threshold = voiced_threshold
         self.merge = nn.Linear(self.n_harm, 1)
 
+    def draw(self, batch: int, frames: int, generator: SourceGenerator,
+             device) -> SourceDraws:
+        """The initial phases (the fundamental's zeroed) and the noise of
+        ``batch`` rows of ``frames`` frames, drawn from ``generator`` in the
+        order ``forward`` draws them."""
+        rand_ini = _draw(torch.rand, (batch, self.n_harm), generator, device)
+        rand_ini[:, 0] = 0.0
+        noise = _draw(torch.randn, (batch, self.n_harm, frames * self.hop_length),
+                      generator, device)
+        return SourceDraws(rand_ini, noise)
+
     def forward(self, f0: torch.Tensor, generator: SourceGenerator,
-                deterministic: bool = False) -> torch.Tensor:
+                deterministic: bool = False,
+                draws: SourceDraws | None = None) -> torch.Tensor:
         b, frames = f0.shape
         source_len = frames * self.hop_length
         harmonics = torch.arange(1, self.n_harm + 1, dtype=torch.float32, device=f0.device)
@@ -97,8 +121,9 @@ class SineSource(nn.Module):
         if deterministic:
             rand_ini = torch.zeros((b, self.n_harm), device=f0.device)
         else:
-            rand_ini = _draw(torch.rand, (b, self.n_harm), generator, f0.device)
-            rand_ini[:, 0] = 0.0
+            if draws is None:
+                draws = self.draw(b, frames, generator, f0.device)
+            rand_ini = draws.rand_ini
         # integrate at frame rate, then linearly upsample the phase
         phase = torch.cumsum(rad, dim=-1) * (2.0 * math.pi * self.hop_length)
         phase = linear_resize(phase, source_len) + (rand_ini * 2.0 * math.pi)[:, :, None]
@@ -108,8 +133,7 @@ class SineSource(nn.Module):
         sines = sines * uv
         if not deterministic:
             noise_amp = uv * self.noise_std + (1.0 - uv) * self.sine_amp / 3.0
-            sines = sines + noise_amp * _draw(torch.randn, sines.shape, generator,
-                                              f0.device)
+            sines = sines + noise_amp * draws.noise
         return torch.tanh(self.merge(sines.transpose(1, 2)))[..., 0]
 
 
@@ -170,11 +194,13 @@ class Generator(nn.Module):
     def forward(self, mel: torch.Tensor, style: torch.Tensor, pitch: torch.Tensor,
                 voiced: torch.Tensor, *, generator: SourceGenerator = None,
                 prior: torch.Tensor | None = None,
-                deterministic_prior: bool = False) -> torch.Tensor:
+                deterministic_prior: bool = False,
+                source_draws: SourceDraws | None = None) -> torch.Tensor:
         """mel (B, input_dim, frames); pitch, voiced (B, frames) ->
         audio (B, frames * hop) before the tanh."""
         if prior is None:
-            prior = self.source(pitch * voiced, generator, deterministic_prior)
+            prior = self.source(pitch * voiced, generator, deterministic_prior,
+                                source_draws)
         prior = prior.detach()
         end = self.start_fft + self.hidden_dim
         har_mag, har_x, har_y = stft_lib.stft_magnitude_unit_phase(
@@ -241,9 +267,16 @@ class MultiGenerator(nn.Module):
                 voiced: torch.Tensor, generator: SourceGenerator = None,
                 prior: torch.Tensor | None = None,
                 deterministic_prior: bool = False,
-                dropout_generator: torch.Generator | None = None) -> DecoderPrediction:
+                dropout_generator: torch.Generator | None = None,
+                source_draws: SourceDraws | None = None) -> DecoderPrediction:
         x = self.amp_norm(self.amp_input_conv(mel))
         x = self.amp_conformer(x, style, generator=dropout_generator)
         audio = self.basegen(x, style, pitch, voiced, generator=generator, prior=prior,
-                             deterministic_prior=deterministic_prior)
+                             deterministic_prior=deterministic_prior,
+                             source_draws=source_draws)
         return DecoderPrediction(audio=torch.tanh(audio))
+
+    def draw_sources(self, batch: int, frames: int, generator: SourceGenerator,
+                     device) -> SourceDraws:
+        """The sine source's draws for ``batch`` rows of ``frames`` frames."""
+        return self.basegen.source.draw(batch, frames, generator, device)

@@ -24,7 +24,9 @@ initial phase is drawn per batch row from the row's ``torch.Generator``
 (one generator: one draw per row from it), so that a row's audio does not
 depend on the batch around it; JAX draws one scalar for the whole batch
 (ROADMAP Queue 3). Without a generator, or with ``deterministic_prior``,
-the phase starts at zero. The head's exp / cos / sin and the iSTFT run in
+the phase starts at zero. ``source_draws`` carries that phase already
+drawn (``UpsampleGenerator.draw_sources``), for a captured CUDA graph or an
+exported program. The head's exp / cos / sin and the iSTFT run in
 float32 under mixed precision.
 """
 
@@ -40,14 +42,15 @@ from torch import nn
 from ..dsp import stft as stft_lib
 from .common import AdaptiveGeneratorBlock, Conv1d, channel_param, snake
 from .conformer import Conformer
-from .generator import DecoderPrediction, SourceGenerator, _draw
+from .generator import DecoderPrediction, SourceDraws, SourceGenerator, _draw
 
 MAX_HARMONICS = 16
 
 
 def generate_pcph(f0: torch.Tensor, voiced: torch.Tensor, hop_length: int,
                   sample_rate: int, generator: SourceGenerator = None,
-                  power_factor: float = 0.1) -> torch.Tensor:
+                  power_factor: float = 0.1,
+                  rand_ini: torch.Tensor | None = None) -> torch.Tensor:
     """F0 (B, frames) Hz and voicing (B, frames) -> (B, frames * hop) masked
     harmonics (up to 16, none above Nyquist) of amplitude
     power_factor * sqrt(2 / n_harm).
@@ -55,7 +58,8 @@ def generate_pcph(f0: torch.Tensor, voiced: torch.Tensor, hop_length: int,
     The phase is constant in radians per sample within a frame, so the
     audio-rate cumulative sum is the frame-rate one times the hop plus an
     in-frame ramp that starts at 1 (the reference's sum includes the
-    current sample). ``generator=None``: zero initial phase."""
+    current sample). ``rand_ini`` (B, 1) is the initial phase in cycles,
+    else it is drawn from ``generator``; ``generator=None``: zero."""
     b, frames = f0.shape
     f0 = f0.to(torch.float32)
     device = f0.device
@@ -68,10 +72,9 @@ def generate_pcph(f0: torch.Tensor, voiced: torch.Tensor, hop_length: int,
     amplitude = vuv[:, None, :] * power_factor * torch.sqrt(2.0 / n_harm)
 
     rad = f0 / sample_rate  # cycles per sample, (B, frames)
-    if generator is None:
-        rand_ini = torch.zeros((b, 1), device=device)
-    else:
-        rand_ini = _draw(torch.rand, (b, 1), generator, device)
+    if rand_ini is None:
+        rand_ini = (torch.zeros((b, 1), device=device) if generator is None
+                    else _draw(torch.rand, (b, 1), generator, device))
     cum_start = torch.cumsum(rad, dim=1) - rad + rand_ini  # cycles at each frame start / hop
     ramp = torch.arange(1, hop_length + 1, dtype=torch.float32, device=device)[None, None, :]
     cycles = cum_start[:, :, None] * hop_length + rad[:, :, None] * ramp
@@ -167,7 +170,8 @@ class UpsampleGenerator(nn.Module):
     def forward(self, *, mel: torch.Tensor, style: torch.Tensor, pitch: torch.Tensor,
                 voiced: torch.Tensor, generator: SourceGenerator = None,
                 prior: torch.Tensor | None = None, deterministic_prior: bool = False,
-                dropout_generator: torch.Generator | None = None) -> DecoderPrediction:
+                dropout_generator: torch.Generator | None = None,
+                source_draws: SourceDraws | None = None) -> DecoderPrediction:
         """mel (B, in_dim, frames); pitch (Hz), voiced (B, frames) ->
         audio (B, frames * prod(upsample_rates) * hop) and the head's
         log-amplitude and phase (B, n_fft // 2 + 1, frames').
@@ -177,8 +181,11 @@ class UpsampleGenerator(nn.Module):
         which no two STFT implementations share."""
         frames = mel.shape[2]
         if prior is None:
+            drawn = None if deterministic_prior or source_draws is None \
+                else source_draws.rand_ini
             prior = generate_pcph(pitch, voiced, self.prior_hop, self.sample_rate,
-                                  None if deterministic_prior else generator)
+                                  None if deterministic_prior else generator,
+                                  rand_ini=drawn)
         prior = prior.detach()
         har_mag, har_x, har_y = stft_lib.stft_magnitude_unit_phase(
             prior, self.n_fft, self.hop, self.n_fft, center=True,
@@ -222,3 +229,12 @@ class UpsampleGenerator(nn.Module):
                                normalize_window=True, length=frames * self.prior_hop)
         return DecoderPrediction(audio=audio if self.faithful else torch.tanh(audio),
                                  magnitude=logamp, phase=phase)
+
+    def draw_sources(self, batch: int, frames: int, generator: SourceGenerator,
+                     device) -> SourceDraws:
+        """The pcph's initial phase for ``batch`` rows, as ``generate_pcph``
+        draws it from ``generator`` (zero without one); ``frames`` does not
+        change it."""
+        if generator is None:
+            return SourceDraws(torch.zeros((batch, 1), device=device))
+        return SourceDraws(_draw(torch.rand, (batch, 1), generator, device))

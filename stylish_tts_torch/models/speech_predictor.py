@@ -12,6 +12,8 @@ decoder's box smoothing and the harmonic source (the sine source, or the
 ringformer's pcph phase), as the JAX ``rngs`` / ``rng`` pair does. JAX
 ignores ``prior`` and ``deterministic_prior`` for the ringformer; the port
 passes both on (an injected prior for parity runs, zero initial phase).
+``source_draws`` hands either source its random numbers already drawn
+(``draw_sources``), in place of ``generator``'s draws.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from .decoder import Decoder
-from .generator import DecoderPrediction, MultiGenerator, SourceGenerator
+from .generator import DecoderPrediction, MultiGenerator, SourceDraws, SourceGenerator
 from .ringformer import UpsampleGenerator
 from .text_encoder import TextEncoder
 
@@ -58,7 +60,8 @@ class SpeechPredictor(nn.Module):
                 generator: SourceGenerator = None,
                 prior: torch.Tensor | None = None,
                 deterministic_prior: bool = False,
-                dropout_generator: torch.Generator | None = None) -> DecoderPrediction:
+                dropout_generator: torch.Generator | None = None,
+                source_draws: SourceDraws | None = None) -> DecoderPrediction:
         """texts (B, T_text); alignment (B, T_text, T_frames); curves
         (B, T_frames); style (B, style_dim) -> audio (B, T_frames * hop)
         (and the ringformer head's log-amplitude and phase)."""
@@ -69,4 +72,12 @@ class SpeechPredictor(nn.Module):
         return self.generator(mel=mel, style=style, pitch=denormal_pitch, voiced=voiced,
                               generator=generator, prior=prior,
                               deterministic_prior=deterministic_prior,
-                              dropout_generator=dropout_generator)
+                              dropout_generator=dropout_generator,
+                              source_draws=source_draws)
+
+    def draw_sources(self, batch: int, frames: int, generator: SourceGenerator,
+                     device) -> SourceDraws:
+        """The harmonic source's random numbers for ``batch`` rows of
+        ``frames`` frames (the pitch curve's length), drawn from
+        ``generator`` exactly as ``forward`` would draw them from it."""
+        return self.generator.draw_sources(batch, frames, generator, device)

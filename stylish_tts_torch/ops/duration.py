@@ -10,9 +10,14 @@ function). ``total_frames`` is the frame bucket.
 ``class_count`` and ``max_dur`` clip the inputs of the two table lookups,
 as in JAX; the tables stay fixed at 16 classes and durations up to 50, and
 an index past a table's end reads its last entry (a JAX gather clamps).
+The tables are copied to a device once (``_device_table``), so that a call
+on the card moves nothing from the host and can be captured in a CUDA
+graph.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -33,10 +38,19 @@ DUR_TO_CLASS = np.array(
 )
 
 
-def _lookup(table: np.ndarray, idx: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=8)
+@torch.inference_mode(False)
+def _device_table(name: str, device: torch.device) -> torch.Tensor:
+    """The table ``name`` on ``device``, made once (outside inference mode,
+    so that training can save it for a backward after synthesis made it)."""
+    return torch.as_tensor({"class_to_dur": CLASS_TO_DUR, "dur_to_class": DUR_TO_CLASS}[name],
+                           device=device)
+
+
+def _lookup(name: str, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` with out-of-range indices clamped to the table."""
-    t = torch.as_tensor(table, device=idx.device)
-    return t[idx.long().clamp(0, len(table) - 1)]
+    t = _device_table(name, idx.device)
+    return t[idx.long().clamp(0, t.shape[0] - 1)]
 
 
 class DurationProcessor:
@@ -45,13 +59,13 @@ class DurationProcessor:
         self.max_dur = max_dur
 
     def class_to_dur_hard(self, classes: torch.Tensor) -> torch.Tensor:
-        return _lookup(CLASS_TO_DUR, torch.clamp(classes, 0, self.class_count - 1))
+        return _lookup("class_to_dur", torch.clamp(classes, 0, self.class_count - 1))
 
     def dur_to_class(self, durs: torch.Tensor) -> torch.Tensor:
         """Durations (frames, int or float; a float is clipped, then
         truncated) -> ordinal class ids (int32)."""
         durs = torch.clamp(durs, 1, self.max_dur).to(torch.int32)
-        return _lookup(DUR_TO_CLASS, durs)
+        return _lookup("dur_to_class", durs)
 
     def align_to_class(self, alignment: torch.Tensor) -> torch.Tensor:
         """(..., frames) alignment rows -> the class of each row's sum."""
@@ -59,7 +73,7 @@ class DurationProcessor:
 
     def class_to_dur_soft(self, softdur: torch.Tensor) -> torch.Tensor:
         """(..., classes) softmax weights -> expected duration."""
-        table = torch.as_tensor(CLASS_TO_DUR, device=softdur.device)
+        table = _device_table("class_to_dur", softdur.device)
         num = torch.sum(softdur * table, dim=-1)
         return num / (torch.sum(softdur, dim=-1) + 1e-9)
 
