@@ -147,7 +147,7 @@ Phases (any failure exits non-zero):
    ``prepare-book --phonemize`` and ``speak`` of the book (as phase 5
    checks; the longest line's tokens, RTF). ``generator.remat``: in one
    child process per setting, the acoustic step at full width (bf16, slm
-   on, 440 frames) at B = 8, 16, 24, 32, 48, 64, 96 until the first OOM (peak
+   on, 440 frames) at B = 8, 16, 24 until the first OOM (peak
    memory of each; at B = 16 the step's ms, device ms and launches); one
    fp32 step with remat on, card against CPU (as phase 7). The OOM
    shrink-and-skip: ``train --stage acoustic`` through the CLI in a child
@@ -218,13 +218,34 @@ Phases (any failure exits non-zero):
    ringformer's is held on the CPU, tests/test_torch_programs.py); then (h) in a
    child (``--capture-fails``), a program whose function reads a value back
    must raise at capture;
-14. print the synthesis, front-end, acoustic, later-stage, recipe,
-   ringformer, audiobook, imported, data-parallel and programs summary
-   lines (a line saying that no multi-GPU scaling number exists before
-   the data-parallel one), the
-   ``kernels`` JSON line (``launches``: the audiobook ``train-align``'s;
-   ``launches_by_path``: that, the front end's, phase 2's, the imported
-   voice's and the data-parallel phase's), then the device line last.
+14. the 2-D and hybrid meshes (``parallel/sharding_rules.py``), in phase 6's
+   directory, on phase 2's batch: (a) a 1 x 1 mesh through NCCL, 2
+   alignment steps and one fp32 acoustic step bitwise against no group;
+   (b) the alignment stage at full width (4 steps on 68 rows, the prior
+   update halfway, dropout off, deterministic cuDNN) on a 2 x 2 and a
+   (2, 1, 2) mesh of 4 gloo ranks each on the one card (children
+   ``--mesh-rank``; NCCL refuses two ranks on one device) against one
+   process: losses 1e-5 relative, the updated priors 1e-5 (the
+   accumulators 1e-5 relative), the first step's gradient 1e-3 of its norm,
+   the weights 1e-2 of the move after the first and the fourth step (see
+   ``MESH_ALIGN_WEIGHT_RTOL``), every rank's weights alike, 4 + 4 CTC
+   launches on every rank and both kernels held against the plain version
+   at each rank's shard; (c), (d) one fp32 acoustic, textual and duration
+   step at full width (B = 2, 1 s, the parity switches, MRD 1, PyTorch's
+   own convolutions, the TPRLS medians' gradient stopped) on a 1 x 2 mesh
+   of 2 gloo ranks against one process: metrics 1e-4, each trained
+   module's weights 0.1 of the move; (e) collectives per step by axis,
+   bytes of parameters + moments per rank against the full state, step ms
+   (the ranks share one card: not a scaling figure), and the sharded
+   parameter and FLOP shares of the state and the audit views;
+15. print the synthesis, front-end, acoustic, later-stage, recipe,
+   ringformer, audiobook, imported, data-parallel, programs and mesh
+   summary lines (a line saying that no multi-GPU scaling number exists
+   before the data-parallel one, and one saying the same before the mesh
+   one), the ``kernels`` JSON line (``launches``: the audiobook
+   ``train-align``'s; ``launches_by_path``: that, the front end's, phase
+   2's, the imported voice's, the data-parallel phase's and the meshes'),
+   then the device line last.
 
 Tolerances: the kernels carry the trellis as float-float pairs and
 normalise gamma per frame (see csrc/ctc.cu), so they are held against the
@@ -3178,8 +3199,10 @@ BOOK_VAL_INTERVAL = 4
 BOOK_SAVE_INTERVAL = 5
 # remat: the acoustic step at full width on phase 6's 440-frame clips, bf16,
 # slm on, in one child process per setting: each batch size in turn (2 steps;
-# at B = 16 2 warm-up steps, the median of 4, one traced) until the first OOM
-REMAT_SIZES = (8, 16, 24, 32, 48, 64, 96)
+# at B = 16 2 warm-up steps, the median of 4, one traced) until the first OOM.
+# Cut to B = 24 to keep the script inside its time (the full sweep to 96
+# found B = 32 out of memory with remat off, and B = 96 with it on)
+REMAT_SIZES = (8, 16, 24)
 REMAT_TIMED_B = 16
 # the first step's mel, multi-phase and slm terms with remat against without
 # (their forward runs the same kernels; the discriminators, bf16 with remat
@@ -3605,6 +3628,8 @@ def child_main(argv) -> int:
         result = ctc_checked(torch, tuple(map(int, args)))
     elif flag == "--dp-rank":
         result = dp_rank_main(torch, int(args[0]), args[1], args[2], args[3])
+    elif flag == "--mesh-rank":
+        result = mesh_rank_main(torch, args[0], int(args[1]), args[2], args[3])
     elif flag == "--capture-fails":
         result = capture_fails(torch)
     else:
@@ -4771,6 +4796,518 @@ def phase_programs(torch, work: Path, card: str):
     return report
 
 
+# ---------------------------------------------------------------- phase 14
+
+MESH_ALIGN_STEPS = 4  # 2 steps, the epoch's prior update, 2 steps
+MESH_ALIGN_B = DP_ALIGN_B  # 68: 34 rows a data rank
+MESH_SHAPES = {"2d": (2, 2), "hybrid": (2, 1, 2)}  # 4 gloo ranks each on the card
+MESH_STAGE_SHAPE = (1, 2)  # 2 gloo ranks: the acoustic, textual and duration steps
+MESH_LOSS_RTOL = 1e-5
+# the priors made at the epoch's update (from the first two steps'
+# posteriors); the accumulators of the last two steps, relative
+MESH_PRIOR_ATOL = 1e-5
+MESH_PRIOR_RTOL = 1e-5
+# the first step's gradient (gathered): L2 error over its norm, phase 12's
+# DP_GRAD_RTOL. Then the weights' L2 error over the move, after the first
+# step and after the fourth: the sharded products sum in another order,
+# which moves each gradient by rounding, and AdamW moves every element by
+# about lr x the sign of its gradient, so an element whose gradient is
+# rounding noise moves by lr either way: each such flip adds 2 lr to the
+# error (2.1e-3 of the move after one step on an H100, what ~5 flips of
+# the 4.88M elements give)
+MESH_GRAD_RTOL = DP_GRAD_RTOL
+MESH_ALIGN_WEIGHT_RTOL = 1e-2
+MESH_STAGE_METRIC_RTOL = 1e-4
+MESH_STAGE_WEIGHT_RTOL = CARD_CPU_WEIGHT_RTOL  # 0.1 of the step's move (L2)
+MESH_STAGE_B, MESH_STAGE_SECONDS = 2, 1.0
+MESH_STAGES = ("acoustic", "textual", "duration")
+# the audit's configuration (scripts/audit_sharding.py): B = 16 x 3 s
+AUDIT_B, AUDIT_L, AUDIT_F = 16, 64, 240
+
+
+def _cpu(tree: dict) -> dict:
+    return {n: {k: v.detach().cpu() for k, v in sd.items()} for n, sd in tree.items()}
+
+
+def mesh_wrap(mesh):
+    from stylish_tts_torch.parallel import sharding_rules as sr
+
+    return sr.parallel_2d_step if len(mesh.shape) == 2 else sr.parallel_hybrid_step
+
+
+def state_bytes(torch, state) -> dict:
+    """This rank's bytes of parameters plus AdamW moments, and the full
+    state's (the sharded ones gathered: a collective on a mesh)."""
+    from stylish_tts_torch.parallel import sharding_rules as sr
+
+    modules = sr._module_table(state)
+    opts = list(sr._optimizers(state))
+    local = sum(p.numel() * p.element_size() for m in modules.values() for p in m.parameters())
+    local += sum(t.numel() * t.element_size() for o in opts for st in o.state.values()
+                 for k, t in st.items() if k in ("exp_avg", "exp_avg_sq"))
+    full = sum(t.numel() * t.element_size() for kind in sr.gather_state(state).values()
+               for sd in kind.values() for t in sd.values())
+    return {"local": local, "full": full}
+
+
+def mesh_align_run(torch, batch, mesh=None, n_steps=MESH_ALIGN_STEPS) -> dict:
+    """``n_steps`` alignment steps at the full ``ModelConfig()`` from seed 0,
+    dropout off, the priors refreshed halfway, on the global ``batch``: on
+    ``mesh`` through ``parallel_2d_step`` / ``parallel_hybrid_step`` (each
+    rank its rows, the kernels sharded), else in one process. Losses,
+    priors, the weights before and after (gathered), step ms, CTC launches,
+    collectives by axis, the state's bytes."""
+    from stylish_tts_torch import parallel
+    from stylish_tts_torch.config import Config, ModelConfig
+    from stylish_tts_torch.models import build_text_aligner
+    from stylish_tts_torch.ops import ctc_cuda
+    from stylish_tts_torch.parallel import sharding_rules as sr
+    from stylish_tts_torch.trainer import steps as steps_mod
+    from stylish_tts_torch.trainer.normalization import NormalizationStats
+    from stylish_tts_torch.trainer.state import create_train_state
+
+    mc = ModelConfig()
+    torch.manual_seed(0)
+    state = create_train_state(build_text_aligner(mc), mc.text_encoder.tokens + 1, "cuda")
+    state.aligner.dropout = 0.0
+    ctx = steps_mod.StepContext(mc, Config().loss_weight.model_dump(), NormalizationStats(),
+                                stage_steps=1000, base_lr=1e-4)
+    before = _cpu(_snapshot(torch, {"text_aligner": state.aligner}))
+    step = steps_mod.make_alignment_step(ctx)
+    if mesh is not None:
+        step = mesh_wrap(mesh)(step, state, mesh)
+
+    def weights():
+        if mesh is None:
+            return _cpu(_snapshot(torch, {"text_aligner": state.aligner}))
+        return _cpu({"text_aligner": sr.gather_state(state)["params"]["text_aligner"]})
+
+    grads, real_update = {}, steps_mod.apply_module_update
+    coll = {k: 0 for k in parallel.COLLECTIVES}  # the steps' own, by axis
+
+    def count(fn, sign):
+        before = dict(parallel.COLLECTIVES)
+        out = fn()
+        for k in coll:
+            coll[k] += sign * (parallel.COLLECTIVES[k] - before[k])
+        return out
+
+    def update(module, optimizer, lr, finite=None):  # the first step's gradient
+        if not grads:
+            grads.update(count(lambda: {k: g.cpu() for k, g in
+                                        sr.gather_grads(module).items()}, -1))
+        return real_update(module, optimizer, lr, finite)
+
+    steps_mod.apply_module_update = update
+    launches = dict(ctc_cuda.LAUNCHES)
+    losses, ms, first = [], [], None
+    try:
+        for i in range(n_steps):
+            if i == n_steps // 2:
+                state = steps_mod.finish_alignment_epoch(ctx, state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(count(lambda: step(state, batch), 1)["align_loss"].detach().clone())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                first = weights()
+    finally:
+        steps_mod.apply_module_update = real_update
+    out = {"losses": torch.stack(losses).cpu(), "step_ms": ms, "before": before,
+           "after_first": first, "grads": grads,
+           "log_priors_updated": state.log_priors.detach().cpu().clone(),
+           "priors": {k: getattr(state, k).detach().cpu().clone()
+                      for k in ("log_priors_sum", "prior_count", "log_priors")},
+           "launches": {k: ctc_cuda.LAUNCHES[k] - launches[k] for k in launches},
+           "collectives_per_step": {k: v / n_steps for k, v in coll.items()}}
+    out["after"] = weights()
+    if mesh is not None:
+        out["bytes"] = state_bytes(torch, state)
+    return out
+
+
+def mesh_stage_run(torch, stage, batch, prior, mesh=None) -> dict:
+    """One fp32 step of ``stage`` at the full ``ModelConfig()`` from seed 0
+    (the parity switches, the injected excitation ``prior``, MRD
+    ``DP_FORCED``), on ``mesh`` or in one process; PyTorch's own
+    convolutions and the TPRLS medians' gradient stopped, as
+    ``dp_two_ranks`` compares (the medians swap with a neighbour under any
+    change of rounding). Metrics, the trained modules' weights before and
+    after (gathered), step ms, collectives by axis, the state's bytes."""
+    from stylish_tts_torch import losses, parallel
+    from stylish_tts_torch.config import Config, ModelConfig
+    from stylish_tts_torch.models import STAGE_TRAIN_MODELS
+    from stylish_tts_torch.parallel import sharding_rules as sr
+    from stylish_tts_torch.trainer import steps as steps_mod
+    from stylish_tts_torch.trainer.normalization import NormalizationStats
+
+    mc = ModelConfig()
+    state = stage_state(torch, mc, "cuda", stage)
+    names = STAGE_TRAIN_MODELS[stage]
+    before = _cpu(_snapshot(torch, {n: state.models[n] for n in names}))
+    ctx = steps_mod.StepContext(mc, Config().loss_weight.model_dump(), NormalizationStats(),
+                                stage_steps=100, parity_deterministic=True,
+                                parity_prior=prior.cuda(), forced_disc_index=DP_FORCED)
+    step = (steps_mod.make_acoustic_step(ctx) if stage == "acoustic"
+            else later_step(torch, ctx, stage, "cuda"))
+    if mesh is not None:
+        step = mesh_wrap(mesh)(step, state, mesh)
+    real_median = losses._median_lower
+    losses._median_lower = lambda x: real_median(x).detach()
+    torch.backends.cudnn.enabled = False
+    coll = dict(parallel.COLLECTIVES)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = {k: float(v) for k, v in step(state, batch).items()}
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        losses._median_lower = real_median
+        torch.backends.cudnn.enabled = True
+    out = {"metrics": metrics, "step_ms": ms, "before": before,
+           "collectives_per_step": {k: parallel.COLLECTIVES[k] - coll[k] for k in coll}}
+    if mesh is None:
+        out["after"] = _cpu(_snapshot(torch, {n: state.models[n] for n in names}))
+    else:
+        full = sr.gather_state(state)["params"]
+        out["after"] = _cpu({n: full[n] for n in names})
+        out["bytes"] = state_bytes(torch, state)
+    return out
+
+
+def mesh_rank_main(torch, kind: str, rank: int, store: str, args_path: str) -> dict:
+    """One gloo rank on ``cuda:0`` of a mesh (``args``' shape): ``align``,
+    the alignment steps on the global batch (its CTC launches counted, both
+    kernels held against the plain version at its shard's shape); or
+    ``stages``, one step of each later stage. Tensors to a file beside
+    ``store``; the summary returned."""
+    from stylish_tts_torch import parallel
+    from stylish_tts_torch.ops import ctc_cuda
+    from stylish_tts_torch.parallel import sharding_rules as sr
+    from stylish_tts_torch.trainer.steps import Batch
+
+    args = torch.load(args_path, weights_only=True)
+    shape = tuple(args["mesh"])
+    world = 1
+    for n in shape:
+        world *= n
+    parallel.init_data_parallel(backend="gloo", rank=rank, world_size=world,
+                                init_method=f"file://{store}", device="cuda:0", timeout_s=300)
+    try:
+        mesh = sr.make_2d_mesh(*shape) if len(shape) == 2 else sr.make_hybrid_mesh(*shape)
+        batch = Batch(*(None if x is None else x.cuda() for x in args["batch"]))
+        if kind == "align":
+            for k in ctc_cuda.LAUNCHES:
+                ctc_cuda.LAUNCHES[k] = 0
+            torch.backends.cudnn.deterministic = True
+            run = mesh_align_run(torch, batch, mesh)
+            b, t, c, u = args["shape"]
+            k = b // mesh.data
+            rows = slice(parallel.rank() * k, (parallel.rank() + 1) * k)
+            spec = dict(b=k, t=t, c=c, u=u, label_lengths=args["batch"][2][rows].tolist(),
+                        input_lengths=[t] * k)
+            check, _ = check_case(torch, f"mesh {shape} rank {rank}", spec, seed=300 + rank)
+            saved = {k: run[k] for k in ("losses", "priors", "after", "after_first",
+                                         "log_priors_updated", "grads")}
+            summary = {"losses": run["losses"].tolist(), "launches": run["launches"],
+                       "check": check, **{k: run[k] for k in ("step_ms", "collectives_per_step",
+                                                            "bytes")}}
+        else:
+            runs = {stage: mesh_stage_run(torch, stage, batch, args["prior"], mesh)
+                    for stage in MESH_STAGES}
+            saved = {stage: r["after"] for stage, r in runs.items()}
+            summary = {stage: {k: r[k] for k in ("metrics", "step_ms", "collectives_per_step",
+                                                 "bytes")} for stage, r in runs.items()}
+        torch.save(saved, f"{store}.rank{rank}.pt")
+    finally:
+        parallel.shutdown()
+    return {"rank": rank, "model_rank": rank % shape[-1], **summary}
+
+
+def mesh_world_one(torch, batch, stage_batch, prior, work: Path) -> dict:
+    """(a) A 1 x 1 mesh through NCCL (a file store, rank 0 of 1) against no
+    process group: 2 alignment steps and one fp32 acoustic step, losses,
+    priors, metrics and weights bitwise (deterministic cuDNN)."""
+    from stylish_tts_torch import parallel
+    from stylish_tts_torch.parallel import sharding_rules as sr
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs = {}
+    try:
+        for name in ("no_group", "mesh_1x1"):
+            mesh = None
+            if name == "mesh_1x1":
+                parallel.init_data_parallel(backend="nccl", rank=0, world_size=1,
+                                            init_method=f"file://{work / 'store_mesh1'}",
+                                            device="cuda:0")
+                mesh = sr.make_2d_mesh(1, 1)
+            try:
+                runs[name] = {"align": mesh_align_run(torch, batch, mesh, n_steps=2),
+                              "acoustic": mesh_stage_run(torch, "acoustic", stage_batch, prior,
+                                                         mesh)}
+            finally:
+                parallel.shutdown()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    a, b = runs["no_group"], runs["mesh_1x1"]
+    same = {"align_losses": torch.equal(a["align"]["losses"], b["align"]["losses"]),
+            "align_priors": all(torch.equal(a["align"]["priors"][k], b["align"]["priors"][k])
+                                for k in a["align"]["priors"]),
+            "align_weights": _weights_equal(torch, a["align"]["after"], b["align"]["after"]),
+            "acoustic_metrics": a["acoustic"]["metrics"] == b["acoustic"]["metrics"],
+            "acoustic_weights": _weights_equal(torch, a["acoustic"]["after"],
+                                               b["acoustic"]["after"])}
+    log(f"mesh 1 x 1 through NCCL: bitwise the path without a group {same}; collectives "
+        f"{b['align']['collectives_per_step']}")
+    if not all(same.values()):
+        fail(f"a 1 x 1 mesh through NCCL is not bitwise the path without a group: {same}")
+    return {"bitwise": same, "align_launches": b["align"]["launches"],
+            "step_ms": {n: {"align": r["align"]["step_ms"], "acoustic": r["acoustic"]["step_ms"]}
+                        for n, r in runs.items()}}
+
+
+def mesh_shares(torch) -> dict:
+    """(e) The counterpart of ``scripts/audit_sharding.py`` on the port: per
+    module, the parameter share that the rules shard in the state view (the
+    step's) and in the audit's view (the module's name prepended), and the
+    module's forward FLOPs at the audit's configuration (``utils/flops.py``
+    ``count_fn``, on the card); the param share and the FLOP-weighted share
+    of each view."""
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.models import build_models, build_text_aligner
+    from stylish_tts_torch.ops.duration import DurationProcessor
+    from stylish_tts_torch.parallel.sharding_rules import module_specs
+    from stylish_tts_torch.utils.flops import count_fn
+
+    mc = ModelConfig()
+    torch.manual_seed(0)
+    models = build_models(mc)
+    models["text_aligner"] = build_text_aligner(mc)
+    b, lt, f = AUDIT_B, AUDIT_L, AUDIT_F
+    gen = torch.Generator().manual_seed(0)
+    dev = "cuda"
+    audio = (torch.randn((b, f * mc.hop_length), generator=gen) * 0.1).to(dev)
+    texts = torch.randint(1, 170, (b, lt), generator=gen).to(dev)
+    lengths = torch.full((b,), lt, device=dev)
+    align = DurationProcessor().duration_to_alignment(torch.full((b, lt), f / lt, device=dev), f)
+    pitch = torch.full((b, f), 120.0, device=dev)
+    energy = torch.zeros((b, f), device=dev)
+    voiced = torch.ones((b, f), device=dev)
+    style = torch.zeros((b, mc.style_dim), device=dev)
+    style_mel = torch.randn((b, 80, f), generator=gen).to(dev)
+    spec = torch.rand((b, 1, 257, 563), generator=gen).to(dev)
+    align_mel = torch.randn((b, f, mc.text_aligner.n_mels), generator=gen).to(dev)
+    calls = {
+        "speech_predictor": lambda m: m(texts, lengths, align, pitch, energy, voiced, style,
+                                        pitch, deterministic_prior=True).audio,
+        "pitch_energy_predictor": lambda m: m(texts, lengths, align, style),
+        "duration_predictor": lambda m: m(texts, lengths, style),
+        "text_aligner": lambda m: m(align_mel, torch.full((b,), f, device=dev)),
+        "speech_style_encoder": lambda m: m(style_mel),
+        "pe_style_encoder": lambda m: m(style_mel, pitch, energy),
+        "duration_style_encoder": lambda m: m(style_mel),
+        **{f"mrd{i}": (lambda m: m(spec)) for i in range(3)},
+        "disc": lambda m: m(audio),
+        "pitch_disc": lambda m: m(torch.stack([pitch * voiced, energy], 1)),
+        "dur_disc": lambda m: m(torch.full((b, 1, lt), 4.0, device=dev)),
+    }
+    rows = {}
+    for name, module in models.items():
+        module = module.to(dev).eval()
+        total = {}
+        for view, audit in (("state", False), ("audit", True)):
+            specs = module_specs(name, module, audit=audit)
+            total[view] = sum(module.get_parameter(k).numel() for k, d in specs.items()
+                              if d is not None)
+        n = sum(p.numel() for p in module.parameters())
+        with torch.no_grad():
+            flops = count_fn(calls[name], module).total
+        rows[name] = {"params": n, "state": total["state"], "audit": total["audit"],
+                      "flops": flops}
+        models[name] = module.cpu()
+    flops_all = sum(r["flops"] for r in rows.values())
+    params_all = sum(r["params"] for r in rows.values())
+    shares = {}
+    for view in ("state", "audit"):
+        shares[f"{view}_param_share"] = sum(r[view] for r in rows.values()) / params_all
+        shares[f"{view}_flop_share"] = sum(r["flops"] * r[view] / r["params"]
+                                           for r in rows.values()) / flops_all
+    log("sharded share (port, ModelConfig(), forward FLOPs at B = 16 x 3 s): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in shares.items()))
+    return {"modules": rows, **shares}
+
+
+def mesh_summary(mesh: dict, card: str) -> dict:
+    """The mesh phase's printed line."""
+    ranks, errs = mesh["ranks"], mesh["errors"]
+    return {
+        "card": card, "wall_s": mesh["wall_s"], "ranks_s": mesh["ranks_s"],
+        "world_one_bitwise": mesh["world_one"]["bitwise"],
+        **{f"align_{n}_{k}": errs[n][k] for n in MESH_SHAPES
+           for k in ("loss_rel", "priors_abs", "accumulators_rel", "grad_rel",
+                     "weight_err_over_move", "weight_err_over_move_4")},
+        **{f"{s}_metric_max_rel": max(errs[s]["metric_rel"].values()) for s in MESH_STAGES},
+        **{f"{s}_weight_err_over_move": errs[s]["weight_err_over_move"] for s in MESH_STAGES},
+        "ctc_launches_per_rank": mesh["launches_per_rank"],
+        "collectives_per_step": {
+            **{f"align_{n}": ranks[n][0]["collectives_per_step"] for n in MESH_SHAPES},
+            **{s: ranks["stages"][0][s]["collectives_per_step"] for s in MESH_STAGES}},
+        "rank0_state_bytes": {
+            **{f"align_{n}": ranks[n][0]["bytes"] for n in MESH_SHAPES},
+            **{s: ranks["stages"][0][s]["bytes"] for s in MESH_STAGES}},
+        "step_ms_ranks_share_one_card": {
+            **{f"align_{n}": ranks[n][0]["step_ms"] for n in MESH_SHAPES},
+            **{s: ranks["stages"][0][s]["step_ms"] for s in MESH_STAGES}},
+        "step_ms_one_process": mesh["reference_step_ms"],
+        **{k: v for k, v in mesh["shares"].items() if k.endswith("share")}}
+
+
+def phase_mesh(torch, work: Path, card: str, align_batch) -> dict:
+    """Phase 14: the 2-D and hybrid meshes (``parallel/sharding_rules.py``):
+    (a) a 1 x 1 mesh through NCCL bitwise; (b) the alignment stage at full
+    width on a 2 x 2 and a (2, 1, 2) mesh of 4 gloo ranks each on the card
+    against one process (the CTC kernels launched on every rank); (c), (d)
+    one acoustic, textual and duration step at full width on a 1 x 2 mesh of
+    2 gloo ranks against one process; (e) collectives by axis, step ms,
+    bytes per rank, the sharded shares."""
+    from stylish_tts_torch.config import ModelConfig
+    from stylish_tts_torch.trainer.normalization import NormalizationStats
+    from stylish_tts_torch.trainer.steps import Batch, StepContext, batch_to_device
+
+    t0 = time.time()
+    data = work / "data"
+    batch = Batch(*(None if x is None else x[:MESH_ALIGN_B] for x in align_batch))
+    ctx = StepContext(ModelConfig(), {}, NormalizationStats())
+    with torch.no_grad():
+        frames = ctx.norm_mel(batch.audio_gt[:1], ctx.to_align_mel).shape[-1]
+    shape = (MESH_ALIGN_B, frames, ctx.blank_id + 1, batch.text.shape[1])
+    stage_batch = acoustic_batch(torch, data, MESH_STAGE_B, seconds=MESH_STAGE_SECONDS)
+    gen = torch.Generator().manual_seed(3)
+    prior = torch.tanh(0.3 * torch.randn(stage_batch.audio_gt.shape, generator=gen))
+    stage_batch = batch_to_device(stage_batch, "cuda")
+    report = {"world_one": mesh_world_one(torch, batch, stage_batch, prior, work)}
+
+    # the one-process references (the alignment runs with deterministic
+    # cuDNN, here and in the ranks; a second one says whether the card
+    # repeats itself)
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref_align = mesh_align_run(torch, batch)
+        ref_again = mesh_align_run(torch, batch)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ref_stages = {stage: mesh_stage_run(torch, stage, stage_batch, prior)
+                  for stage in MESH_STAGES}
+
+    # the ranks: both alignment meshes and the stage mesh at once on the card
+    jobs = []
+    for name, mesh_shape in (*MESH_SHAPES.items(), ("stages", MESH_STAGE_SHAPE)):
+        args = work / f"mesh_{name}_args.pt"
+        kind = "stages" if name == "stages" else "align"
+        torch.save({"mesh": list(mesh_shape), "shape": shape,
+                    "batch": [None if x is None else x.cpu()
+                              for x in (stage_batch if kind == "stages" else batch)],
+                    "prior": prior}, args)
+        store = work / f"store_mesh_{name}"
+        n = 1
+        for d in mesh_shape:
+            n *= d
+        jobs += [(name, r, (kind, r, store, args)) for r in range(n)]
+    t_ranks = time.time()
+    results = children(torch, "--mesh-rank", [j[2] for j in jobs])
+    ranks_s = time.time() - t_ranks
+    by_mesh = {}
+    for (name, r, (_, _, store, _)), res in zip(jobs, results):
+        by_mesh.setdefault(name, []).append(
+            (res, torch.load(f"{store}.rank{r}.pt", weights_only=True)))
+
+    bad, errs = [], {}
+    for name in MESH_SHAPES:
+        ranks = by_mesh[name]
+        e = {"loss_rel": max(float(((s["losses"].double() - ref_align["losses"].double()).abs()
+                                    / ref_align["losses"].double().abs()).max())
+                             for _, s in ranks),
+             "priors_abs": max(float((s["log_priors_updated"].double()
+                                      - ref_align["log_priors_updated"].double()).abs().max())
+                               for _, s in ranks),
+             "accumulators_rel": max(float(((s["priors"][k].double()
+                                             - ref_align["priors"][k].double()).abs()
+                                            / ref_align["priors"][k].double().abs()
+                                            .clamp_min(1e-30)).max())
+                                     for _, s in ranks for k in ("log_priors_sum",
+                                                                 "prior_count")),
+             "grad_rel": max(_rel(torch, [s["grads"][k] for k in sorted(ref_align["grads"])],
+                                  [ref_align["grads"][k] for k in sorted(ref_align["grads"])])
+                             for _, s in ranks),
+             "weight_err_over_move": max(
+                 _weight_err_over_move(torch, ref_align["before"], s["after_first"],
+                                       ref_align["after_first"])["text_aligner"]
+                 for _, s in ranks),
+             "weight_err_over_move_4": max(
+                 _weight_err_over_move(torch, ref_align["before"], s["after"],
+                                       ref_align["after"])["text_aligner"] for _, s in ranks),
+             "ranks_alike": all(_weights_equal(torch, ranks[0][1]["after"], s["after"])
+                                for _, s in ranks),
+             "launches": [res["launches"] for res, _ in ranks]}
+        errs[name] = e
+        bad += [f"{name} {k}" for k, lim in (("loss_rel", MESH_LOSS_RTOL),
+                                            ("priors_abs", MESH_PRIOR_ATOL),
+                                            ("accumulators_rel", MESH_PRIOR_RTOL),
+                                            ("grad_rel", MESH_GRAD_RTOL),
+                                            ("weight_err_over_move", MESH_ALIGN_WEIGHT_RTOL),
+                                            ("weight_err_over_move_4", MESH_ALIGN_WEIGHT_RTOL))
+                if not e[k] <= lim]
+        if not e["ranks_alike"] or any(l[k] != MESH_ALIGN_STEPS for l in e["launches"]
+                                       for k in l):
+            bad.append(f"{name} ranks alike {e['ranks_alike']}, CTC launches {e['launches']}")
+    stage_ranks = by_mesh["stages"]
+    for stage in MESH_STAGES:
+        ref = ref_stages[stage]
+        e = {"metric_rel": {k: max(abs(res[stage]["metrics"][k] - v) / max(abs(v), 1e-30)
+                                   for res, _ in stage_ranks)
+                            for k, v in ref["metrics"].items()},
+             "weight_err_over_move": {n: max(_weight_err_over_move(
+                 torch, ref["before"], s[stage], ref["after"])[n] for _, s in stage_ranks)
+                 for n in ref["after"]}}
+        errs[stage] = e
+        bad += [f"{stage} metric {k}" for k, v in e["metric_rel"].items()
+                if not v <= MESH_STAGE_METRIC_RTOL]
+        bad += [f"{stage} weights {n}" for n, v in e["weight_err_over_move"].items()
+                if not v <= MESH_STAGE_WEIGHT_RTOL]
+    errs["align_one_process_again"] = {
+        "loss_rel": float(((ref_again["losses"].double() - ref_align["losses"].double()).abs()
+                           / ref_align["losses"].double().abs()).max()),
+        "weight_err_over_move": _weight_err_over_move(
+            torch, ref_align["before"], ref_again["after"], ref_align["after"])["text_aligner"]}
+    report.update(errors=errs, ranks={k: [res for res, _ in v] for k, v in by_mesh.items()},
+                  ranks_s=ranks_s,
+                  reference_step_ms={"align": ref_align["step_ms"],
+                                     **{s: r["step_ms"] for s, r in ref_stages.items()}},
+                  launches_per_rank={name: [res["launches"] for res, _ in by_mesh[name]]
+                                     for name in MESH_SHAPES})
+    report["shares"] = mesh_shares(torch)
+    report["wall_s"] = time.time() - t0
+    for name in MESH_SHAPES:
+        r0 = by_mesh[name][0][0]
+        log(f"mesh {name} {MESH_SHAPES[name]} alignment (4 gloo ranks on one card): errors "
+            f"{errs[name]}; collectives per step {r0['collectives_per_step']}; bytes of "
+            f"parameters + moments on rank 0 {r0['bytes']}; step ms {r0['step_ms']} against "
+            f"one process {ref_align['step_ms']} (ranks share one card: not a scaling figure)")
+    r0 = stage_ranks[0][0]
+    for stage in MESH_STAGES:
+        log(f"mesh {MESH_STAGE_SHAPE} {stage} step: errors {errs[stage]}; collectives "
+            f"{r0[stage]['collectives_per_step']}; bytes on rank 0 {r0[stage]['bytes']}; "
+            f"step ms {r0[stage]['step_ms']:.1f} against one process "
+            f"{ref_stages[stage]['step_ms']:.1f} (ranks share one card: not a scaling figure)")
+    log(f"one process against itself: {errs['align_one_process_again']}")
+    log(f"mesh phase: {report['wall_s']:.1f} s (ranks {ranks_s:.1f} s)")
+    if bad:
+        fail(f"the meshes against one process: {bad}")
+    return report
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         return child_main(sys.argv[1:])
@@ -4839,6 +5376,8 @@ def main() -> int:
         lap("12_data_parallel")
         programs = phase_programs(torch, Path(tmp), card)
         lap("13_programs")
+        mesh = phase_mesh(torch, Path(tmp), card, batch)
+        lap("14_mesh")
     front_launches = front["train_align"]["launches"]
     if not all(front_launches.values()):
         fail(f"a CTC kernel of the front end's train-align never launched: {front_launches}")
@@ -4865,7 +5404,12 @@ def main() -> int:
                                  "data_parallel_world_one_align":
                                      data_parallel["world_one"]["align_launches"][key],
                                  "data_parallel_two_ranks_align":
-                                     data_parallel["two_ranks"]["launches"][key]},
+                                     data_parallel["two_ranks"]["launches"][key],
+                                 "mesh_1x1_nccl_align":
+                                     mesh["world_one"]["align_launches"][key],
+                                 **{f"mesh_{name}_align_per_rank": [
+                                     l[key] for l in mesh["launches_per_rank"][name]]
+                                    for name in MESH_SHAPES}},
             "max_abs_err": max(checks["main_path"][err], audiobook["kernel_check"][err]),
             "ms": tm[key]["ms"], "plain_ms": tm[key]["plain_ms"],
             "bound_ms": tm[key]["bound_ms"], "bound_by": tm[key]["bound_by"],
@@ -4876,7 +5420,7 @@ def main() -> int:
               "front_end": front, "synthesis": synthesis, "acoustic": acoustic,
               "recipe": recipe, "ringformer": ringformer, "audiobook": audiobook,
               "imported": imported, "data_parallel": data_parallel, "programs": programs,
-              "phase_s": phase_s,
+              "mesh": mesh, "phase_s": phase_s,
               "wall_s": time.time() - t_start}
     log("phase wall s: " + json.dumps({k: round(v, 1) for k, v in phase_s.items()}))
     OUT.mkdir(exist_ok=True)
@@ -5083,6 +5627,9 @@ def main() -> int:
         "achieved_tflops": dp["flops"]["achieved_tflops"],
         "mfu_vs_dense_bf16": dp["flops"]["mfu_vs_dense_bf16"]}}), flush=True)
     print(json.dumps({"programs": programs_summary(programs, card)}), flush=True)
+    print("mesh: the ranks of each mesh share the one card through gloo, so no tensor-parallel "
+          "speed or scaling number exists", flush=True)
+    print(json.dumps({"mesh": mesh_summary(mesh, card)}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

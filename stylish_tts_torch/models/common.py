@@ -14,6 +14,31 @@ Epsilons are the JAX sites' own: flax ``nn.LayerNorm`` 1e-6,
 ``LayerNormChannels`` 1e-4, ``AdaptiveLayerNorm`` and
 ``AdaptiveInstanceNorm`` 1e-5 (1e-6 where a caller says so), GroupNorm
 1e-6, GRN 1e-12 and 1e-6.
+
+Tensor parallelism (``parallel/sharding_rules.py``). ``shard_state``
+replaces the kernels that the JAX rules shard by this model rank's
+contiguous slice and marks their module with ``tp_dim``: 0 (column: the
+output features) or 1 (row: the input features). ``tp_apply`` is then the
+Megatron product: a column layer reads its input through
+``copy_to_model`` and its bias through ``scatter_to_model`` and gives this
+rank's output slice; a row layer takes the matching input slice, its
+partial products are summed by one ``reduce_from_model``, and its bias is
+added once after the sum. Between a pair, per-channel operations take
+their slice of a replicated parameter or activation (``scatter_to_model``:
+the column bias, the ``_StyleFiLM`` output, the snake alphas, GRN's
+``gamma`` and ``beta``), and dropout draws the full mask and takes its
+slice, so that a rank draws what one process draws. The invariant: a
+replicated tensor is read into sharded compute only through a function
+whose backward all-reduces over the model group, so after a backward every
+rank of a model group holds the full gradient of each replicated parameter
+(alike across the group up to the rounding of its own kernels, which
+``parallel.pmean_grads`` removes by taking model rank 0's) and its slice of
+the one-process gradient of each sharded one. Places where a pair is not
+elementwise: GRN's mean over the channels (``sum_over_model``), the
+spectral norm's sigma (from the full kernel, gathered under ``no_grad``),
+the conformer's fused ``to_kv`` and attention heads that do not divide
+(``conformer.py``, ``text_encoder.py``).
+A module without ``tp_dim`` computes exactly as before.
 """
 
 from __future__ import annotations
@@ -24,6 +49,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel import mesh as pmesh
 
 
 def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
@@ -41,19 +68,23 @@ def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return x + (1.0 / alpha) * torch.square(torch.sin(alpha * x))
 
 
-def spectral_normalize(weight: torch.Tensor, n_iter: int = 3) -> torch.Tensor:
+def spectral_normalize(weight: torch.Tensor, n_iter: int = 3,
+                       shard_dim: int | None = None) -> torch.Tensor:
     """Stateless spectral normalization of a conv or dense weight (the JAX
     ``spectral_normalize``): 3 power iterations from the normalised ones
     vector over the kernel flattened as flax lays it out, (..., in, out) ->
     (-1, out); sigma is a constant of the backward pass (stop-gradient).
+    ``shard_dim``: ``weight`` is this model rank's shard along that dim;
+    sigma is then the full kernel's (gathered without a gradient).
 
     Not ``torch.nn.utils.spectral_norm``, which keeps a random, stateful
     ``u`` across calls and so computes another function."""
     with torch.no_grad():
-        if weight.dim() > 2:  # torch (out, in, *k) -> flax (*k, in, out)
-            w = weight.permute(*range(2, weight.dim()), 1, 0)
+        full = weight if shard_dim is None else pmesh.gather_model_tensor(weight, shard_dim)
+        if full.dim() > 2:  # torch (out, in, *k) -> flax (*k, in, out)
+            w = full.permute(*range(2, full.dim()), 1, 0)
         else:  # nn.Linear (out, in) -> flax (in, out)
-            w = weight.t()
+            w = full.t()
         w = w.reshape(-1, w.shape[-1])
         u = torch.ones(w.shape[0], dtype=w.dtype, device=w.device) / math.sqrt(w.shape[0])
         for _ in range(n_iter):
@@ -63,6 +94,43 @@ def spectral_normalize(weight: torch.Tensor, n_iter: int = 3) -> torch.Tensor:
             u = u / (torch.linalg.vector_norm(u) + 1e-12)
         sigma = torch.clamp_min(u @ (w @ v), 1e-12)
     return weight / sigma
+
+
+def tp_dim(module: nn.Module) -> int | None:
+    """The dim of ``module``'s weight that the model axis shards (0 column,
+    1 row), or None."""
+    return getattr(module, "tp_dim", None)
+
+
+def tp_pair(column: nn.Module, row: nn.Module) -> bool:
+    """Whether the pair ``column`` -> ``row`` runs sharded (the rules shard
+    both or neither)."""
+    col, r = tp_dim(column), tp_dim(row)
+    if (col, r) not in ((None, None), (0, 1)):
+        raise ValueError(f"a column/row pair sharded as ({col}, {r})")
+    return col == 0
+
+
+def tp_apply(module: nn.Module, x: torch.Tensor, op, weight: torch.Tensor | None = None,
+             channel_dim: int = 1) -> torch.Tensor:
+    """``op(x, weight, bias)`` (``weight`` defaults to the module's) as the
+    module's ``tp_dim`` says: unsharded, column (x alike on every model rank;
+    this rank's output slice) or row (x this rank's input slice; the full
+    output, its bias added after the sum). ``channel_dim``: the output's
+    feature dim."""
+    w = module.weight if weight is None else weight
+    d = tp_dim(module)
+    if d is None:
+        return op(x, w, module.bias)
+    if d == 0:
+        bias = None if module.bias is None else pmesh.scatter_to_model(module.bias, 0)
+        return op(pmesh.copy_to_model(x), w, bias)
+    y = pmesh.reduce_from_model(op(x, w, None))
+    if module.bias is None:
+        return y
+    shape = [1] * y.dim()
+    shape[channel_dim] = -1
+    return y + module.bias.view(shape).to(y.dtype)
 
 
 def channel_param(channels: int, value: float) -> nn.Parameter:
@@ -84,12 +152,27 @@ class Conv1d(nn.Conv1d):
             padding=get_padding(kernel_size, dilation), groups=groups, bias=bias,
         )
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return tp_apply(self, x, self._conv_forward)
+
+
+def _pointwise(x: torch.Tensor, weight: torch.Tensor, bias) -> torch.Tensor:
+    return F.conv1d(x, weight[:, :, None], bias)
+
 
 class Pointwise(nn.Linear):
     """flax ``nn.Dense`` over the channels of a (B, C, T) tensor."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv1d(x, self.weight[:, :, None], self.bias)
+        return tp_apply(self, x, _pointwise)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` (flax ``nn.Dense``) over the last dim, tensor-parallel
+    where the rules shard it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return tp_apply(self, x, F.linear, channel_dim=-1)
 
 
 class ChannelLayerNorm(nn.LayerNorm):
@@ -153,8 +236,13 @@ class _StyleFiLM(nn.Module):
         self.eps = eps
         self.fc = nn.Linear(style_dim, 2 * channels)
 
-    def film(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+    def film(self, x: torch.Tensor, style: torch.Tensor,
+             sharded: bool = False) -> torch.Tensor:
+        """``sharded``: x holds this model rank's slice of the channels, and
+        gamma and beta are read through theirs."""
         gamma, beta = self.fc(style).chunk(2, dim=-1)
+        if sharded:
+            gamma, beta = pmesh.scatter_to_model(gamma, 1), pmesh.scatter_to_model(beta, 1)
         return (1.0 + gamma[:, :, None]) * x + beta[:, :, None]
 
 
@@ -177,10 +265,11 @@ class AdaptiveInstanceNorm(_StyleFiLM):
     def __init__(self, channels: int, style_dim: int, eps: float = 1e-5):
         super().__init__(channels, style_dim, eps)
 
-    def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, style: torch.Tensor,
+                sharded: bool = False) -> torch.Tensor:
         mean = x.mean(dim=2, keepdim=True)
         var = x.var(dim=2, keepdim=True, unbiased=False)
-        return self.film((x - mean) * torch.rsqrt(var + self.eps), style)
+        return self.film((x - mean) * torch.rsqrt(var + self.eps), style, sharded)
 
 
 class GRN(nn.Module):
@@ -192,10 +281,19 @@ class GRN(nn.Module):
         self.gamma = channel_param(dim, 0.0)
         self.beta = channel_param(dim, 0.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sharded: bool = False) -> torch.Tensor:
+        """``sharded``: x holds this model rank's slice of the channels; the
+        mean over the channels is then one all-reduce of the slices' sums."""
         gx = torch.sqrt(torch.sum(torch.square(x), dim=2, keepdim=True) + 1e-12)
-        nx = gx / (gx.mean(dim=1, keepdim=True) + 1e-6)
-        return self.gamma * (x * nx) + self.beta + x
+        gamma, beta = self.gamma, self.beta
+        if sharded:
+            total = pmesh.sum_over_model(gx.sum(dim=1, keepdim=True))
+            mean = total / (gx.shape[1] * pmesh.model_size())
+            gamma, beta = pmesh.scatter_to_model(gamma, 1), pmesh.scatter_to_model(beta, 1)
+        else:
+            mean = gx.mean(dim=1, keepdim=True)
+        nx = gx / (mean + 1e-6)
+        return gamma * (x * nx) + beta + x
 
 
 class AdaptiveDecoderBlock(nn.Module):
@@ -217,10 +315,12 @@ class AdaptiveDecoderBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, style: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        sharded = tp_pair(self.conv1, self.conv2)
         h = F.leaky_relu(self.norm1(x, style), 0.2)
         h = self.conv1(dropout(h, self.dropout, self.training, generator))
-        h = F.leaky_relu(self.norm2(h, style), 0.2)
-        h = self.conv2(dropout(h, self.dropout, self.training, generator))
+        h = F.leaky_relu(self.norm2(h, style, sharded), 0.2)
+        h = self.conv2(dropout(h, self.dropout, self.training, generator,
+                               shard_dim=1 if sharded else None))
         res = x if self.shortcut is None else self.shortcut(x)
         return (h + res) / math.sqrt(2.0)
 
@@ -243,24 +343,36 @@ class AdaptiveGeneratorBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, style: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_units):
+            conv1, conv2 = getattr(self, f"conv1_{i}"), getattr(self, f"conv2_{i}")
+            sharded = tp_pair(conv1, conv2)
+            alpha2 = getattr(self, f"alpha2_{i}")
             h = getattr(self, f"adain1_{i}")(x, style)
             h = snake(h, getattr(self, f"alpha1_{i}"))
-            h = getattr(self, f"conv1_{i}")(h)
-            h = getattr(self, f"adain2_{i}")(h, style)
-            h = snake(h, getattr(self, f"alpha2_{i}"))
-            x = x + getattr(self, f"conv2_{i}")(h)
+            h = conv1(h)
+            h = getattr(self, f"adain2_{i}")(h, style, sharded)
+            h = snake(h, pmesh.scatter_to_model(alpha2, 1) if sharded else alpha2)
+            x = x + conv2(h)
         return x
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: torch.Generator | None) -> torch.Tensor:
+            generator: torch.Generator | None,
+            shard_dim: int | None = None) -> torch.Tensor:
     """Inverted dropout drawing its mask from an explicit generator (flax
-    ``nn.Dropout``: keep with probability 1 - rate, scale by 1/(1-rate))."""
+    ``nn.Dropout``: keep with probability 1 - rate, scale by 1/(1-rate)).
+    ``shard_dim``: x is this model rank's slice along that dim; the full
+    mask is drawn and its slice taken, as one process draws it."""
     if not training or rate <= 0.0:
         return x
     keep = 1.0 - rate
+    shape = list(x.shape)
+    if shard_dim is not None:
+        shape[shard_dim] *= pmesh.model_size()
     # float32 draws whatever x's dtype (a bf16 uniform would move the rate)
-    u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
+    u = torch.rand(shape, generator=generator, device=x.device, dtype=torch.float32)
+    if shard_dim is not None:
+        n = x.shape[shard_dim]
+        u = u.narrow(shard_dim, pmesh.model_rank() * n, n)
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 

@@ -11,6 +11,16 @@ twice as the JAX block does, and the conv module's output) is active in
 generator calls it without lengths, and that path has
 no mask; with lengths, padded keys are masked and padded query rows
 zeroed, as the JAX module does.
+
+On a model axis (``parallel/sharding_rules.py``) the feed-forwards'
+``Dense_0`` / ``Dense_1`` are a column/row pair, and the attention's
+``to_q`` and ``to_kv`` column-sharded with ``to_out`` row-sharded. The rule
+splits the fused (dim, 2 * inner) ``to_kv`` kernel contiguously, so at model
+size 2 rank 0 holds the whole ``k`` half and rank 1 the ``v`` half: the port
+gathers that WEIGHT (a zero-padded all-reduce of the kernel, cheaper than
+the activations) and each rank projects only its heads of ``k`` and ``v``.
+Where the heads do not divide by the model size, ``q`` is gathered too and
+every rank attends over all heads, ``to_out`` reading its slice.
 """
 
 from __future__ import annotations
@@ -21,7 +31,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import AdaptiveLayerNorm, Conv1d, Norm1d, Pointwise, dropout, sequence_mask
+from ..parallel import mesh as pmesh
+from .common import (
+    AdaptiveLayerNorm,
+    Conv1d,
+    Linear,
+    Norm1d,
+    Pointwise,
+    dropout,
+    sequence_mask,
+    tp_pair,
+)
 
 
 class ConformerFeedForward(nn.Module):
@@ -34,7 +54,9 @@ class ConformerFeedForward(nn.Module):
         self.dense_1 = Pointwise(dim * mult, dim)
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
-        x = dropout(F.silu(self.dense_0(x)), self.dropout, self.training, generator)
+        sharded = tp_pair(self.dense_0, self.dense_1)
+        x = dropout(F.silu(self.dense_0(x)), self.dropout, self.training, generator,
+                    shard_dim=1 if sharded else None)
         return dropout(self.dense_1(x), self.dropout, self.training, generator)
 
 
@@ -46,20 +68,35 @@ class ConformerAttention(nn.Module):
         self.heads = heads
         self.dim_head = dim_head
         inner = heads * dim_head
-        self.to_q = nn.Linear(dim, inner, bias=False)
+        self.to_q = Linear(dim, inner, bias=False)
         self.to_kv = nn.Linear(dim, inner * 2, bias=False)
-        self.to_out = nn.Linear(inner, dim)
+        self.to_out = Linear(inner, dim)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                 generator=None) -> torch.Tensor:
         x = x.transpose(1, 2)
         b, t, _ = x.shape
+        sharded = tp_pair(self.to_q, self.to_out)
+        split = sharded and self.heads % pmesh.model_size() == 0
 
         def heads(h):
-            return h.reshape(b, t, self.heads, self.dim_head).transpose(1, 2)
+            return h.reshape(b, t, -1, self.dim_head).transpose(1, 2)
 
-        q = heads(self.to_q(x))
-        k, v = (heads(h) for h in self.to_kv(x).chunk(2, dim=-1))
+        q = self.to_q(x)
+        x_kv, kv_weight = x, self.to_kv.weight
+        if sharded:
+            kv_weight = pmesh.gather_from_model(kv_weight, 0)
+        if split:  # this rank's heads of k and of v, from the gathered kernel
+            inner = self.heads * self.dim_head
+            n = inner // pmesh.model_size()
+            lo = pmesh.model_rank() * n
+            kv_weight = pmesh.copy_to_model(kv_weight)
+            kv_weight = torch.cat([kv_weight[lo:lo + n], kv_weight[inner + lo:inner + lo + n]])
+            x_kv = pmesh.copy_to_model(x)
+        elif sharded:  # the heads do not divide: every rank attends over all
+            q = pmesh.gather_from_model(q, -1)
+        q = heads(q)
+        k, v = (heads(h) for h in F.linear(x_kv, kv_weight).chunk(2, dim=-1))
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(self.dim_head)
         if mask is not None:
             keep = (mask[:, None, :, None] * mask[:, None, None, :]) > 0
@@ -68,6 +105,8 @@ class ConformerAttention(nn.Module):
         if mask is not None:
             out = out * mask[:, None, :, None]
         out = out.transpose(1, 2).reshape(b, t, -1)
+        if sharded and not split:
+            out = pmesh.scatter_to_model(out, -1)
         out = dropout(self.to_out(out), self.dropout, self.training, generator)
         return out.transpose(1, 2)
 

@@ -7,6 +7,11 @@ activation -> GRN -> pointwise contract -> ``drop_path`` (rate
 ``dropout``, 0 by default as in JAX; active in ``train()`` mode with a
 generator), residual. ``BasicConvNeXtBlock`` has no style: a plain
 LayerNorm (with scale and bias, epsilon 1e-6) and exact GELU.
+
+Where the model axis shards the pair (``pwconv1`` column, ``pwconv2``
+row), the activation, its snake alpha and GRN work on this rank's slice of
+the intermediate channels; GRN's channel mean is the one place inside the
+pair that is not elementwise (``common.GRN``).
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ from .common import (
     channel_param,
     drop_path,
     snake,
+    tp_pair,
 )
+from ..parallel import mesh as pmesh
 
 
 class _ConvNeXtBlock(nn.Module):
@@ -40,14 +47,16 @@ class _ConvNeXtBlock(nn.Module):
         self.grn = GRN(intermediate_dim)
         self.pwconv2 = Pointwise(intermediate_dim, dim)
 
-    def activation(self, x: torch.Tensor) -> torch.Tensor:
+    def activation(self, x: torch.Tensor, sharded: bool = False) -> torch.Tensor:
         raise NotImplementedError
 
     def forward(self, x: torch.Tensor, style: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        sharded = tp_pair(self.pwconv1, self.pwconv2)
         h = self.norm(self.dwconv(x), style)
-        h = self.activation(self.pwconv1(h))
-        h = drop_path(self.pwconv2(self.grn(h)), self.dropout, self.training, generator)
+        h = self.activation(self.pwconv1(h), sharded)
+        h = drop_path(self.pwconv2(self.grn(h, sharded)), self.dropout, self.training,
+                      generator)
         return x + h
 
 
@@ -58,14 +67,14 @@ class GeneratorConvNeXtBlock(_ConvNeXtBlock):
         super().__init__(dim, intermediate_dim, style_dim)
         self.snake = channel_param(intermediate_dim, 1.0)
 
-    def activation(self, x: torch.Tensor) -> torch.Tensor:
-        return snake(x, self.snake)
+    def activation(self, x: torch.Tensor, sharded: bool = False) -> torch.Tensor:
+        return snake(x, pmesh.scatter_to_model(self.snake, 1) if sharded else self.snake)
 
 
 class AdaptiveConvNeXtBlock(_ConvNeXtBlock):
     """Exact (erf) GELU."""
 
-    def activation(self, x: torch.Tensor) -> torch.Tensor:
+    def activation(self, x: torch.Tensor, sharded: bool = False) -> torch.Tensor:
         return F.gelu(x, approximate="none")
 
 

@@ -14,6 +14,13 @@ the same H and W. Every conv holds its RAW kernel and normalises it in
 the forward with the stateless ``spectral_normalize`` (3 power iterations
 from the ones vector; ``sn=False`` for imported, pre-folded weights), so
 the weight bridge moves raw kernels both ways.
+
+On a model axis (``parallel/sharding_rules.py``) each ``ResBlk2d``'s
+``conv1`` and its depthwise ``down`` are column-sharded and ``conv2``
+row-sharded, and the head's ``post`` conv column with ``out`` row (the
+global average pool between is per channel). A sharded conv's sigma is
+the full kernel's: the shards are gathered without a gradient (sigma is a
+constant of the backward), so it is bitwise what one process computes.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Pointwise, spectral_normalize
+from ..parallel import mesh as pmesh
+from .common import Linear, Pointwise, spectral_normalize, tp_apply, tp_dim
 
 
 class SNConv2d(nn.Conv2d):
@@ -40,8 +48,15 @@ class SNConv2d(nn.Conv2d):
         self.sn = sn
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        weight = spectral_normalize(self.weight) if self.sn else self.weight
-        return self._conv_forward(x, weight, self.bias)
+        d = tp_dim(self)
+        weight = spectral_normalize(self.weight, shard_dim=d) if self.sn else self.weight
+        if d is not None and self.groups > 1:
+            # a depthwise column conv on column-sharded features: this
+            # rank's groups alone
+            bias = None if self.bias is None else pmesh.scatter_to_model(self.bias, 0)
+            return F.conv2d(x, weight, bias, self.stride, self.padding, self.dilation,
+                            self.groups // pmesh.model_size())
+        return tp_apply(self, x, self._conv_forward, weight=weight)
 
 
 def _torch_avg_pool_half(x: torch.Tensor) -> torch.Tensor:
@@ -94,7 +109,7 @@ class MelStyleEncoderCore(nn.Module):
             self.add_module(f"res_{i}", ResBlk2d(dim_in, dim_out, down, sn=sn))
             dim_in = dim_out
         self.post = SNConv2d(dim_in, dim_in, 5, padding=0, sn=sn)
-        self.out = nn.Linear(dim_in, style_dim)
+        self.out = Linear(dim_in, style_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, 1, mel, frames) -> (B, style_dim)."""

@@ -7,6 +7,13 @@ one outer skip and a linear head over n_tokens + 1 (blank = n_tokens).
 
 The public layout is the JAX one, (B, T, n_mels) in and (B, T, C) out;
 the convs run on (B, C, T) inside.
+
+On a model axis (``parallel/sharding_rules.py``) the FFN alternates
+column (``ffn_0``, ``ffn_2``, ``ffn_4``) and row (``ffn_1``, ``ffn_3``)
+sharding, and the head ``out`` is row-sharded: it reads ``x + h`` with
+``h`` column-sharded by ``ffn_4`` and ``x`` alike on every rank, so it
+takes this rank's slice of ``x`` (exact). Every rank of a model group
+then gets the same full-class log-probabilities, and runs the CTC on them.
 """
 
 from __future__ import annotations
@@ -14,7 +21,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .common import Conv1d, Norm1d, dropout, sequence_mask
+from ..parallel import mesh as pmesh
+from .common import Conv1d, Linear, Norm1d, dropout, sequence_mask, tp_dim
 
 
 class TextAligner(nn.Module):
@@ -32,9 +40,9 @@ class TextAligner(nn.Module):
             Norm1d(hidden_dim, mode=norm_mode) for _ in range(3)
         )
         self.ffn = nn.ModuleList(
-            nn.Linear(hidden_dim, hidden_dim) for _ in range(5)
+            Linear(hidden_dim, hidden_dim) for _ in range(5)
         )
-        self.out = nn.Linear(hidden_dim, n_tokens + 1)
+        self.out = Linear(hidden_dim, n_tokens + 1)
 
     def forward(self, mel: torch.Tensor, mel_lengths: torch.Tensor, *,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -52,5 +60,7 @@ class TextAligner(nn.Module):
         h = x
         for layer in self.ffn:
             h = dropout(torch.relu(layer(h)), self.dropout, self.training,
-                        generator)
+                        generator, shard_dim=-1 if tp_dim(layer) == 0 else None)
+        if tp_dim(self.out) == 1:  # h is column-sharded by ffn_4
+            x = pmesh.scatter_to_model(x, -1)
         return torch.log_softmax(self.out(x + h), dim=-1)

@@ -14,6 +14,15 @@ another function. Modules take (B, C, T); masks are (B, 1, T).
 Dropout (the prenet's 0.5, ``config.dropout`` on the attention weights
 and after the attention and FFN) is active in ``train()`` mode and draws
 from the ``generator`` the forward is given.
+
+On a model axis (``parallel/sharding_rules.py``) ``q``, ``k`` and ``v`` are
+column-sharded and ``out`` row-sharded, and the FFN's ``conv1`` / ``conv2``
+likewise. A column slice of the projections is a slice of whole heads only
+where the heads divide by the model size (the JAX rule asks only for an even
+width): then each rank attends over its heads, drawing the full
+attention-dropout mask and taking its heads; otherwise the projections are
+gathered, every rank attends over all heads, and ``out`` reads this rank's
+slice of the result.
 """
 
 from __future__ import annotations
@@ -24,7 +33,8 @@ import torch
 from torch import nn
 
 from ..config import TextEncoderConfig
-from .common import Conv1d, LayerNormChannels, Pointwise, dropout, sequence_mask
+from ..parallel import mesh as pmesh
+from .common import Conv1d, LayerNormChannels, Linear, Pointwise, dropout, sequence_mask, tp_pair
 
 
 def rope_rotate(x: torch.Tensor, rope_dim: int, base: float = 10_000.0) -> torch.Tensor:
@@ -50,10 +60,10 @@ class RoPEMultiHeadAttention(nn.Module):
         self.dropout = dropout
         self.n_heads = n_heads
         self.head_dim = channels // n_heads
-        self.q = nn.Linear(channels, channels)
-        self.k = nn.Linear(channels, channels)
-        self.v = nn.Linear(channels, channels)
-        self.out = nn.Linear(channels, channels)
+        self.q = Linear(channels, channels)
+        self.k = Linear(channels, channels)
+        self.v = Linear(channels, channels)
+        self.out = Linear(channels, channels)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 mask: torch.Tensor | None = None,
@@ -61,19 +71,26 @@ class RoPEMultiHeadAttention(nn.Module):
         """x, context: (B, C, T); mask: (B, T, S) keep-mask -> (B, C, T)."""
         x, context = x.transpose(1, 2), context.transpose(1, 2)
         b, t, _ = x.shape
+        sharded = tp_pair(self.q, self.out)
+        gathered = sharded and self.n_heads % pmesh.model_size() != 0
 
         def heads(h):
-            return h.reshape(b, h.shape[1], self.n_heads, self.head_dim)
+            return h.reshape(b, h.shape[1], -1, self.head_dim)
 
-        q, k, v = heads(self.q(x)), heads(self.k(context)), heads(self.v(context))
+        q, k, v = self.q(x), self.k(context), self.v(context)
+        if gathered:  # a column slice would split a head
+            q, k, v = (pmesh.gather_from_model(h, -1) for h in (q, k, v))
+        q, k, v = heads(q), heads(k), heads(v)
         rope_dim = self.head_dim // 2
         q, k = rope_rotate(q, rope_dim), rope_rotate(k, rope_dim)
         scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(self.head_dim)
         if mask is not None:
             scores = scores - 1e4 * (1.0 - (mask[:, None] > 0).to(scores.dtype))
         attn = dropout(torch.softmax(scores, dim=-1), self.dropout, self.training,
-                       generator)
+                       generator, shard_dim=1 if sharded and not gathered else None)
         out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(b, t, -1)
+        if gathered:
+            out = pmesh.scatter_to_model(out, -1)
         return self.out(out).transpose(1, 2)
 
 
@@ -87,8 +104,10 @@ class ConvFFN(nn.Module):
 
     def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
+        sharded = tp_pair(self.conv1, self.conv2)
         x = torch.relu(self.conv1(x * x_mask))
-        x = dropout(x, self.dropout, self.training, generator)
+        x = dropout(x, self.dropout, self.training, generator,
+                    shard_dim=1 if sharded else None)
         return self.conv2(x * x_mask) * x_mask
 
 

@@ -22,6 +22,8 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from .. import parallel
+
 LOGICAL_STEP_LIMIT = 10_000
 PLATEAU = 0.9
 
@@ -50,8 +52,14 @@ def _finite_flag(module: torch.nn.Module) -> torch.Tensor:
 
 def modules_finite(modules) -> list:
     """Whether every gradient of each module is finite, with one host sync
-    for all."""
-    return torch.stack([_finite_flag(m) for m in modules]).tolist()
+    for all. On a model axis the flags are reduced by MIN over the model
+    group first (one collective), so that a NaN in one rank's shard skips the
+    module's update on every rank, as JAX's ``isfinite`` over the global
+    array does."""
+    flags = torch.stack([_finite_flag(m) for m in modules])
+    if parallel.model_size() > 1:
+        flags = parallel.model_all_min(flags.to(torch.float32)) > 0
+    return flags.tolist()
 
 
 def apply_module_update(module: torch.nn.Module, optimizer: torch.optim.Optimizer,

@@ -297,6 +297,10 @@ def main(argv) -> int:
                                     init_method=f"file://{store}", device="cpu",
                                     timeout_s=TIMEOUT_S / 2)
     try:
+        if case not in CASES:  # the tensor-parallel cases
+            from test_torch_tp_common import CASES as TP_CASES
+
+            CASES.update(TP_CASES)
         result = CASES[case](json.loads(Path(args_path).read_text(encoding="utf-8")))
         torch.save(result, out)
     finally:
