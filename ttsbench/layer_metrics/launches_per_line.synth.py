@@ -1,0 +1,9 @@
+"""programs (export/programs.py BucketProgram, export/package.py): kernel
+and graph launches the host issued per line, from the profiler's
+runtime events."""
+
+
+def read(run):
+    if not run.units or not run.launches:
+        return None
+    return run.launches / run.units
