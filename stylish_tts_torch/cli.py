@@ -115,18 +115,27 @@ def _train(config, model_config, out_dir, device, record_steps, profile_dir, sta
 def _profiled(trainer, profile_dir, stage, **kwargs):
     """``trainer.train`` under ``torch.profiler`` (the host, and the card
     where the trainer runs on one), its Chrome trace written to
-    ``profile_dir/trace_rank<R>.json``."""
+    ``profile_dir/trace_rank<R>.json`` with the program's spans
+    (``utils/trace.py``) on tracks of their own."""
+    import time
+
     from torch.profiler import ProfilerActivity, profile
 
     from . import parallel
+    from .utils.trace import DROPPED, add_to_chrome_trace
 
     activities = [ProfilerActivity.CPU]
     if trainer.device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
+    dropped = DROPPED["spans"]
     with profile(activities=activities) as prof:
+        lo = time.time_ns()
         trainer.train(stage, **kwargs)
+        hi = time.time_ns()
     os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(osp.join(profile_dir, f"trace_rank{parallel.rank()}.json"))
+    path = osp.join(profile_dir, f"trace_rank{parallel.rank()}.json")
+    prof.export_chrome_trace(path)
+    add_to_chrome_trace(path, lo, hi, DROPPED["spans"] - dropped)
 
 
 @train_cli.command("dataset-from-audiobook")
@@ -484,11 +493,12 @@ def speak(package_dir, voicepack_path, text_path, out_path, speed, device):
     CUDA graph on the card), built at the first line that needs it and
     replayed from then on."""
     from .data.wav import write_wav
-    from .export.package import InferencePackage
+    from .export.package import BUILT, InferencePackage
     from .tts.loudness import normalize_loudness
     from .tts.voicepack import load_voicepack, lookup_dynamic_style, lookup_static_style
 
     pkg = InferencePackage(package_dir, device=device)
+    built = dict(BUILT)
     pack = load_voicepack(voicepack_path)
     embed = None
     if pack["kind"] == "dynamic":
@@ -514,6 +524,8 @@ def speak(package_dir, voicepack_path, text_path, out_path, speed, device):
         f"wrote {out_path}: {full.shape[0] / pkg.mc.sample_rate:.2f}s "
         f"({len(pieces)} utterances)"
     )
+    click.echo("programs built while speaking: "
+               + ", ".join(f"{phase} {BUILT[phase] - built[phase]}" for phase in BUILT))
 
 
 @tts_cli.command("prepare-book")

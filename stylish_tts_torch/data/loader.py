@@ -6,25 +6,32 @@ copy] ahead of the training step. Audio comes through the native C++
 batch loader (``native/``) when it builds and every segment of the batch
 has its time bin from the header scan, otherwise through
 ``dataset.load_segment`` (scipy WAV IO). ``BATCHES`` counts which path
-served each batch. Data parallel, each rank draws the same global batch
-from its sampler and loads only its rows (``parallel.shard_rows``).
+served each batch (the trace registry's ``loader.batches``). Data
+parallel, each rank draws the same global batch from its sampler and loads
+only its rows (``parallel.shard_rows``).
+
+Spans (``utils/trace.py``), each with the batch number: ``loader.load``
+(reading and collating) and ``loader.put`` (``device_put``) on the worker
+thread, ``loader.wait`` around the consumer's wait for the next batch.
 """
 
 from __future__ import annotations
 
+import itertools
 import os.path as osp
 import queue
 import threading
 from typing import Iterator
 
 from .. import parallel
+from ..utils.trace import counter, span
 from .collate import collate_batch
 from .dataset import FilePathDataset, get_frame_count
 
 _SENTINEL = object()
 
 # batches served by each audio path, bumped once per loaded batch
-BATCHES = {"native": 0, "scipy": 0}
+BATCHES = counter("loader.batches", ("native", "scipy"))
 
 
 class PrefetchLoader:
@@ -93,16 +100,18 @@ class PrefetchLoader:
 
         def worker():
             try:
-                for time_bin, idxs in self.sampler:
+                for n, (time_bin, idxs) in enumerate(self.sampler):
                     if stop.is_set():
                         break
-                    batch, paths = collate_batch(
-                        self.load_items(parallel.shard_rows(idxs)),
-                        hop_length=self.hop_length,
-                        require_pitch=self.require_pitch,
-                    )
+                    with span("loader.load", n):
+                        batch, paths = collate_batch(
+                            self.load_items(parallel.shard_rows(idxs)),
+                            hop_length=self.hop_length,
+                            require_pitch=self.require_pitch,
+                        )
                     if self.device_put is not None:
-                        batch = self.device_put(batch)
+                        with span("loader.put", n):
+                            batch = self.device_put(batch)
                     if not put((time_bin, batch, paths)):
                         return
             except Exception as exc:  # surface errors on the consumer side
@@ -113,8 +122,9 @@ class PrefetchLoader:
         t = threading.Thread(target=worker, daemon=True)
         t.start()
         try:
-            while True:
-                item = q.get()
+            for n in itertools.count():
+                with span("loader.wait", n):
+                    item = q.get()
                 if item is _SENTINEL:
                     break
                 if isinstance(item, Exception):

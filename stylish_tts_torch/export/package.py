@@ -34,6 +34,13 @@ so a program gives the eager call's audio. The JAX ``convert --stablehlo``
 StableHLO module; the port's ``convert --exported-program``
 (``emit_exported_program``) writes it as a ``torch.export`` program,
 ``exported_program/acoustic_L32_F100.pt2``, which the JAX package ignores.
+
+Spans (``utils/trace.py``), each with the line's number (a count of the
+package's ``generate_speech`` calls): ``speak.line`` around a call, with
+``speak.prep`` (bucketing and the inputs' copies to the device),
+``program.replay`` (in ``programs.py``) and ``speak.fetch`` (the host waits
+for the device and copies the result back) inside it. The counter
+``programs.built`` (``BUILT``) counts the programs built, by phase.
 """
 
 from __future__ import annotations
@@ -57,9 +64,13 @@ from ..text import TextCleaner
 from ..trainer.normalization import NormalizationStats
 from ..utils.device import resolve_device
 from ..utils.params_io import load_params_safetensors, save_params_safetensors
+from ..utils.trace import counter, span
 from .programs import BucketProgram
 
 logger = logging.getLogger("stylish_tts_torch")
+
+# programs built, by phase: a build inside a run means no warmup covered it
+BUILT = counter("programs.built", ("fused", "duration", "acoustic"))
 
 TEXT_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512)
 FRAME_BUCKET_STEP = 100
@@ -319,6 +330,7 @@ class InferencePackage:
         self._source_draws: Dict[tuple, SourceDraws] = {}
         self._pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
                       else None)
+        self._lines = 0  # generate_speech calls: the unit of their spans
 
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(np.array(x), dtype=dtype, device=self.device)
@@ -391,13 +403,15 @@ class InferencePackage:
 
     # ---- programs per bucket ---------------------------------------------
 
-    def _program(self, cache: dict, key, batch: int, fn, example_inputs) -> BucketProgram:
+    def _program(self, phase: str, cache: dict, key, batch: int, fn,
+                 example_inputs) -> BucketProgram:
         """The cached program, built on a miss with static inputs cloned from
         ``example_inputs`` (a request's own tensors keep their strides, and
         with them the kernels the eager call on them would run)."""
         entry = cache.setdefault(key, {})
         if batch not in entry:
             entry[batch] = BucketProgram(fn, example_inputs, pool=self._pool)
+            BUILT[phase] += 1
         return entry[batch]
 
     def _example(self, batch: int, L: int, *styles: str):
@@ -412,7 +426,7 @@ class InferencePackage:
         """(texts, lengths, style) -> durations at text bucket L. ``example``:
         the inputs a miss builds its static inputs from (the first
         request's; ones and zeros without it), here and below."""
-        return self._program(self._duration_fns, L, batch, self.durations,
+        return self._program("duration", self._duration_fns, L, batch, self.durations,
                              example or self._example(batch, L, "style"))
 
     def _acoustic_fn(self, L: int, F: int, batch: int = 1, example=None) -> BucketProgram:
@@ -424,8 +438,9 @@ class InferencePackage:
             return self.acoustic(texts, lengths, durations, pe_style, speech_style, F,
                                  source_draws=draws)
 
-        return self._program(self._acoustic_fns, (L, F), batch, fn, example or self._example(
-            batch, L, "durations", "style", "style"))
+        return self._program("acoustic", self._acoustic_fns, (L, F), batch, fn,
+                             example or self._example(batch, L, "durations", "style",
+                                                      "style"))
 
     def _fused_fn(self, L: int, F: int, batch: int = 1, example=None) -> BucketProgram:
         """(texts, lengths, dur_style, pe_style, speech_style, inv_speed) ->
@@ -439,7 +454,7 @@ class InferencePackage:
 
         example = example or self._example(batch, L, "style", "style", "style") + (
             torch.ones((), device=self.device),)
-        return self._program(self._fused_fns, (L, F), batch, fn, example)
+        return self._program("fused", self._fused_fns, (L, F), batch, fn, example)
 
     def _acoustic_module_and_args(self, L: int, F: int):
         """The acoustic phase at (L, F), B = 1, and example inputs of the
@@ -497,29 +512,44 @@ class InferencePackage:
 
         ``fused=None`` takes the fused path when the package carries
         duration stats; True forces it (needs stats), False two-phase."""
-        texts, lengths = self._texts([tokens])
-        L = texts.shape[1]
-        hop = self.mc.hop_length * self.mc.coarse_multiplier
-        f_fused = self._fused_frame_bucket(tokens.shape[0], speed)
-        if fused is None:
-            fused = f_fused is not None
-        if fused:
-            if f_fused is None:
+        self._lines += 1
+        with span("speak.line", self._lines):
+            return self._generate_speech(tokens, speech_style, pe_style, duration_style,
+                                         speed, fused)
+
+    def _generate_speech(self, tokens, speech_style, pe_style, duration_style, speed,
+                         fused):
+        with span("speak.prep"):
+            texts, lengths = self._texts([tokens])
+            L = texts.shape[1]
+            hop = self.mc.hop_length * self.mc.coarse_multiplier
+            f_fused = self._fused_frame_bucket(tokens.shape[0], speed)
+            if fused is None:
+                fused = f_fused is not None
+            if fused and f_fused is None:
                 raise ValueError(
                     "fused path needs duration_stats in the package metadata")
-            inputs = (texts, lengths, self._tensor(duration_style)[None],
-                      self._tensor(pe_style)[None], self._tensor(speech_style)[None],
-                      self._tensor(1.0 / speed))
+            if fused:
+                inputs = (texts, lengths, self._tensor(duration_style)[None],
+                          self._tensor(pe_style)[None], self._tensor(speech_style)[None],
+                          self._tensor(1.0 / speed))
+            else:
+                inputs = (texts, lengths, self._tensor(duration_style)[None])
+        if fused:
             audio, totals = self._fused_fn(L, f_fused, 1, inputs)(*inputs)
-            return audio[0, :int(totals[0]) * hop].cpu().numpy()
+            with span("speak.fetch"):
+                return audio[0, :int(totals[0]) * hop].cpu().numpy()
 
-        inputs = (texts, lengths, self._tensor(duration_style)[None])
-        durations = self._duration_fn(L, 1, inputs)(*inputs).cpu().numpy() / speed
-        total = int(round(float(durations.sum())))
-        inputs = (texts, lengths, self._tensor(durations), self._tensor(pe_style)[None],
-                  self._tensor(speech_style)[None])
+        durations = self._duration_fn(L, 1, inputs)(*inputs)
+        with span("speak.fetch"):
+            durations = durations.cpu().numpy() / speed
+        with span("speak.prep"):
+            total = int(round(float(durations.sum())))
+            inputs = (texts, lengths, self._tensor(durations), self._tensor(pe_style)[None],
+                      self._tensor(speech_style)[None])
         audio = self._acoustic_fn(L, frame_bucket(total), 1, inputs)(*inputs)
-        return audio[0, :total * hop].cpu().numpy()
+        with span("speak.fetch"):
+            return audio[0, :total * hop].cpu().numpy()
 
     def generate_speech_batch(self, token_lists, speech_styles, pe_styles,
                               duration_styles, speed: float = 1.0):

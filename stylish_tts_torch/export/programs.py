@@ -27,6 +27,10 @@ in any order of replay because of two rules that this module keeps:
 
 Replays run one after another on the caller's stream; two programs of one
 pool never run at once.
+
+**Tracing** (``utils/trace.py``). A call is the span ``program.replay``.
+No span opens inside the phase function: it would run at the capture
+only.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
+
+from ..utils.trace import span
 
 # eager runs on a side stream before the capture: the first call of a
 # shape builds cuDNN's plans and the port's cached tensors (DFT bases,
@@ -89,8 +95,10 @@ class BucketProgram:
             if static.shape != x.shape:
                 raise ValueError(f"program input of shape {tuple(static.shape)} given "
                                  f"{tuple(x.shape)}")
-            static.copy_(x)
-        if self.graph is None:
-            return self.fn(*self.inputs)
-        self.graph.replay()
-        return _clone(self.outputs)
+        with span("program.replay"):
+            for static, x in zip(self.inputs, args):
+                static.copy_(x)
+            if self.graph is None:
+                return self.fn(*self.inputs)
+            self.graph.replay()
+            return _clone(self.outputs)

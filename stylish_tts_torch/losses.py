@@ -28,6 +28,7 @@ identity, and every loss is what it was.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Sequence
 
@@ -65,15 +66,22 @@ def _anti_wrapping(phase_diff: torch.Tensor, weights: torch.Tensor) -> torch.Ten
     return torch.abs(phase_diff - TWO_PI * torch.round(phase_diff / TWO_PI)) * weights
 
 
+@functools.lru_cache(maxsize=16)
+@torch.inference_mode(False)
+def phase_weights(freq_size: int, device: torch.device) -> torch.Tensor:
+    """(1, freq, 1) weights rising to 2.5 at half the band, made once per
+    size and device (so that a step copies nothing from the host)."""
+    base = math.exp(math.log(2.5) / (freq_size // 2))
+    weights = torch.pow(torch.tensor(base, dtype=torch.float32),
+                        torch.arange(freq_size, dtype=torch.float32))
+    return weights.to(device)[None, :, None]
+
+
 def differential_phase_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Frequency-weighted anti-wrapping |dphi| + d/df + d/dt terms over
     (B, freq, frames)."""
     target = target.detach()
-    freq_size = target.shape[1]
-    base = math.exp(math.log(2.5) / (freq_size // 2))
-    weights = torch.pow(torch.tensor(base, dtype=torch.float32),
-                        torch.arange(freq_size, dtype=torch.float32))
-    weights = weights.to(pred.device)[None, :, None]
+    weights = phase_weights(target.shape[1], pred.device)
     loss = _mean(_anti_wrapping(pred - target, weights))
     loss = loss + _mean(_anti_wrapping(
         torch.diff(pred, dim=1) - torch.diff(target, dim=1), weights[:, :-1, :]))

@@ -23,6 +23,7 @@ off, as in the JAX module.
 
 from __future__ import annotations
 
+import functools
 import logging
 import math
 import os.path as osp
@@ -68,6 +69,14 @@ def _relative_position_buckets(q_len: int, k_len: int) -> np.ndarray:
     large = np.minimum(large, num_buckets - 1)
     buckets += np.where(is_small, rel, large)
     return buckets
+
+
+@functools.lru_cache(maxsize=16)
+@torch.inference_mode(False)
+def position_buckets(t: int, device: torch.device) -> torch.Tensor:
+    """The (t, t) buckets on ``device``, made once per length (so that a
+    step copies nothing from the host, which would wait for the device)."""
+    return torch.from_numpy(_relative_position_buckets(t, t)).to(device)
 
 
 class _ConvLayer(nn.Module):
@@ -127,7 +136,7 @@ class _Attention(nn.Module):
         b, t, _ = x.shape
         head_dim = HIDDEN // HEADS
         if position_bias is None:
-            buckets = torch.from_numpy(_relative_position_buckets(t, t)).to(x.device)
+            buckets = position_buckets(t, x.device)
             position_bias = self.rel_attn_embed.weight[buckets].permute(2, 0, 1)
         position_bias = position_bias.float()  # (heads, T, T)
 
@@ -316,14 +325,18 @@ def _resample_kernel(orig: int, new: int, lowpass_width: int = 6) -> np.ndarray:
     return kernel.astype(np.float32)
 
 
-_KERNEL = torch.from_numpy(_resample_kernel(24000, 16000))
+@functools.lru_cache(maxsize=4)
+@torch.inference_mode(False)
+def resample_kernel(device: torch.device) -> torch.Tensor:
+    """The 24 -> 16 kHz kernel on ``device``, made once per device."""
+    return torch.from_numpy(_resample_kernel(24000, 16000)).to(device)
 
 
 @fp32_island
 def resample_24k_to_16k(audio: torch.Tensor) -> torch.Tensor:
     """(B, S) 24 kHz -> (B, ceil(S*2/3)) 16 kHz, float32."""
     orig, new = 3, 2
-    kernel = _KERNEL.to(audio.device)
+    kernel = resample_kernel(audio.device)
     width = (kernel.shape[1] - orig) // 2
     x = F.pad(audio.float(), (width, width + orig))[:, None, :]
     out = F.conv1d(x, kernel[:, None, :], stride=orig)  # (B, new, frames)

@@ -30,10 +30,11 @@ from typing import Optional
 
 import torch
 
+from ..utils.trace import counter
 from . import ctc as plain
 
 # Launch counts, one per kernel, bumped only where the kernel launches.
-LAUNCHES = {"alpha_beta": 0, "grad": 0}
+LAUNCHES = counter("ctc.launches", ("alpha_beta", "grad"))
 
 # S = 2U+1 states (1025 at collate.MAX_TEXT = 512)
 MAX_STATES = 1025

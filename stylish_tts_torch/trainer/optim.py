@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import parallel
+from ..utils.trace import span
 
 LOGICAL_STEP_LIMIT = 10_000
 PLATEAU = 0.9
@@ -59,7 +60,8 @@ def modules_finite(modules) -> list:
     flags = torch.stack([_finite_flag(m) for m in modules])
     if parallel.model_size() > 1:
         flags = parallel.model_all_min(flags.to(torch.float32)) > 0
-    return flags.tolist()
+    with span("train.sync.finite"):
+        return flags.tolist()
 
 
 def apply_module_update(module: torch.nn.Module, optimizer: torch.optim.Optimizer,

@@ -67,6 +67,16 @@ their counts by sum, and ``pmean_grads`` averages the gradients after every
 backward and before the nonfinite guard, so that every rank takes the same
 update and skips the same one. The sampled MRD is drawn alike on every rank
 and checked equal. At world size 1 all of this is the identity.
+
+Spans (``utils/trace.py``), each with the step number: ``train.step``
+around every stage's step; in the acoustic and textual steps
+``train.features``, ``train.gen.forward`` and ``train.gen.backward``; in
+those and the duration step ``train.gen.update``, ``train.disc.forward``,
+``train.disc.backward`` and ``train.disc.update``; and a
+``train.sync.<what>`` span at each host read:
+``finite`` (the nonfinite guard's flags, ``optim.modules_finite``),
+``lr_mult`` (a discriminator's gap-aware multiplier, from the host's EMAs:
+no device sync) and ``ema`` (the raw LSGAN terms that move the EMAs).
 """
 
 from __future__ import annotations
@@ -86,6 +96,7 @@ from ..models.models import STAGE_DISCRIMINATORS, STAGE_TRAIN_MODELS
 from ..ops import ctc as ctc_ops
 from ..ops.ctc_cuda import ctc_loss_with_priors_cuda
 from ..ops.duration import DurationProcessor
+from ..utils.trace import span
 from .optim import (
     DISC_SUB_COUNT,
     apply_module_update,
@@ -96,6 +107,16 @@ from .optim import (
 from .state import StageTrainState, TrainState
 
 PRIOR_SCALE = 0.3
+
+
+def _traced(step):
+    """``step`` inside the span ``train.step`` of its step number."""
+
+    def traced(state, batch):
+        with span("train.step", state.step):
+            return step(state, batch)
+
+    return traced
 
 
 class Batch(NamedTuple):
@@ -225,7 +246,7 @@ def make_alignment_step(ctx: StepContext):
         state.step += 1
         return {"align_loss": loss.detach(), "lr": lr}
 
-    return step
+    return _traced(step)
 
 
 def finish_alignment_epoch(ctx: StepContext, state: TrainState) -> TrainState:
@@ -286,11 +307,13 @@ def _update_trained(state: StageTrainState, stage: str, lr: float) -> None:
     the ranks, each through the nonfinite guard (one host sync): the step's
     first optimizer update."""
     names = STAGE_TRAIN_MODELS[stage]
-    parallel.pmean_grads([state.models[n] for n in names])
-    state.update_begun = True
-    flags = modules_finite([state.models[n] for n in names])
-    for name, flag in zip(names, flags):
-        apply_module_update(state.models[name], state.optimizers[name], lr, finite=flag)
+    with span("train.gen.update"):
+        parallel.pmean_grads([state.models[n] for n in names])
+        state.update_begun = True
+        flags = modules_finite([state.models[n] for n in names])
+        for name, flag in zip(names, flags):
+            apply_module_update(state.models[name], state.optimizers[name], lr,
+                                finite=flag)
 
 
 def _begin_disc_phase(state: StageTrainState, stage: str) -> None:
@@ -307,19 +330,24 @@ def _update_discriminators(state: StageTrainState, stage: str, total, raws, step
     syncs: their finite flags, then the raw LSGAN terms ``raws``, global-batch
     means alike on every rank, that move the EMAs). Returns the multipliers
     of every discriminator of ``stage`` as ``<name>_lr_mult``."""
-    (total * sqrt_b).backward()
-    parallel.pmean_grads([state.models[n] for n in stepped])
-    lr_mults = {f"{name}_lr_mult": float(L.disc_lr_multiplier(state.disc_ema[name],
-                                                              DISC_SUB_COUNT[name]))
-                for name in STAGE_DISCRIMINATORS[stage]}
-    raw_names = sorted(raws)
-    flags = modules_finite([state.models[n] for n in stepped])
-    host = torch.stack([raws[n].detach() for n in raw_names]).cpu()
-    for name, flag in zip(stepped, flags):
-        apply_module_update(state.models[name], state.optimizers[name],
-                            lr * lr_mults[f"{name}_lr_mult"], finite=flag)
-    for name, raw in zip(raw_names, host):
-        state.disc_ema[name] = update_disc_ema(state.disc_ema[name], raw)
+    with span("train.disc.backward"):
+        (total * sqrt_b).backward()
+        parallel.pmean_grads([state.models[n] for n in stepped])
+    with span("train.disc.update"):
+        lr_mults = {}
+        for name in STAGE_DISCRIMINATORS[stage]:
+            with span("train.sync.lr_mult"):
+                lr_mults[f"{name}_lr_mult"] = float(L.disc_lr_multiplier(
+                    state.disc_ema[name], DISC_SUB_COUNT[name]))
+        raw_names = sorted(raws)
+        flags = modules_finite([state.models[n] for n in stepped])
+        with span("train.sync.ema"):
+            host = torch.stack([raws[n].detach() for n in raw_names]).cpu()
+        for name, flag in zip(stepped, flags):
+            apply_module_update(state.models[name], state.optimizers[name],
+                                lr * lr_mults[f"{name}_lr_mult"], finite=flag)
+        for name, raw in zip(raw_names, host):
+            state.disc_ema[name] = update_disc_ema(state.disc_ema[name], raw)
     return lr_mults
 
 
@@ -333,7 +361,7 @@ def _disc_phase_mrd(ctx, state: StageTrainState, feats_t_fft, pred_fft_detached,
     _begin_disc_phase(state, "acoustic")
     total = 0.0
     raws = {}
-    with ctx.disc_autocast(audio_t.device):
+    with span("train.disc.forward"), ctx.disc_autocast(audio_t.device):
         for i in active:
             mrd = models[f"mrd{i}"]
             pair, raws[f"mrd{i}"] = L.discriminator_pair_loss(
@@ -354,7 +382,8 @@ def _prosody_disc_phase(state: StageTrainState, stage: str, real, fake_detached,
     name, = STAGE_DISCRIMINATORS[stage]
     disc = state.models[name]
     _begin_disc_phase(state, stage)
-    pair, raw = L.discriminator_pair_loss(disc(real), disc(fake_detached))
+    with span("train.disc.forward"):
+        pair, raw = L.discriminator_pair_loss(disc(real), disc(fake_detached))
     lr_mults = _update_discriminators(state, stage, pair, {name: raw}, [name], lr, sqrt_b)
     return pair.detach(), lr_mults
 
@@ -383,10 +412,11 @@ def make_acoustic_step(ctx: StepContext):
         models = state.models
         sp, se = models["speech_predictor"], models["speech_style_encoder"]
         device = batch.audio_gt.device
-        mel, style_mel, energy, pitch, alignment, frames = _acoustic_features(ctx, batch)
-        with torch.no_grad():
-            audio_t = batch.audio_gt[:, : frames * ctx.mc.hop_length].to(torch.float32)
-            feats_t = ctx.multi_spec(audio_t)
+        with span("train.features"):
+            mel, style_mel, energy, pitch, alignment, frames = _acoustic_features(ctx, batch)
+            with torch.no_grad():
+                audio_t = batch.audio_gt[:, : frames * ctx.mc.hop_length].to(torch.float32)
+                feats_t = ctx.multi_spec(audio_t)
         if ctx.forced_disc_index is not None:
             disc_index = int(ctx.forced_disc_index)
         else:
@@ -400,8 +430,8 @@ def make_acoustic_step(ctx: StepContext):
         sp.train(training)
         se.train(training)
         _generator_phase_grads(state, "acoustic")
-        with torch.autocast(device.type, dtype=torch.bfloat16,
-                            enabled=ctx.mixed_precision):
+        with span("train.gen.forward"), torch.autocast(device.type, dtype=torch.bfloat16,
+                                                        enabled=ctx.mixed_precision):
             style = se(style_mel)
             voiced = (pitch > 20.0).to(torch.float32)
             pred = sp(
@@ -428,7 +458,8 @@ def make_acoustic_step(ctx: StepContext):
                 else:
                     slm = ctx.slm_loss_fn(state.wavlm, audio_t, pred_audio)
                 metrics["slm"] = parallel.global_mean(slm)
-        L.backwards_loss(metrics, ctx.weights).backward()
+        with span("train.gen.backward"):
+            L.backwards_loss(metrics, ctx.weights).backward()
         _update_trained(state, "acoustic", lr)
 
         # --- discriminator phase on the detached outputs ---
@@ -443,7 +474,7 @@ def make_acoustic_step(ctx: StepContext):
         out.update(lr_mults)
         return out
 
-    return step
+    return _traced(step)
 
 
 # ==========================================================================
@@ -463,12 +494,13 @@ def make_textual_step(ctx: StepContext):
         sp, se = models["speech_predictor"], models["speech_style_encoder"]
         pitch_disc = models["pitch_disc"]
         device = batch.audio_gt.device
-        mel, style_mel, energy, pitch, alignment, frames = _acoustic_features(ctx, batch)
-        with torch.no_grad():
-            audio_t = batch.audio_gt[:, : frames * ctx.mc.hop_length].to(torch.float32)
-            feats_t = ctx.multi_spec(audio_t)
-            voiced = (pitch > 10.0).to(torch.float32)
-            pitchcat = torch.stack([pitch * voiced, energy], dim=1)
+        with span("train.features"):
+            mel, style_mel, energy, pitch, alignment, frames = _acoustic_features(ctx, batch)
+            with torch.no_grad():
+                audio_t = batch.audio_gt[:, : frames * ctx.mc.hop_length].to(torch.float32)
+                feats_t = ctx.multi_spec(audio_t)
+                voiced = (pitch > 10.0).to(torch.float32)
+                pitchcat = torch.stack([pitch * voiced, energy], dim=1)
         sqrt_b = math.sqrt(batch.text.shape[0] * parallel.world_size())
         lr = cosine_lr(ctx.base_lr, state.step, ctx.stage_steps)
 
@@ -479,27 +511,29 @@ def make_textual_step(ctx: StepContext):
         sp.eval()
         se.eval()
         _generator_phase_grads(state, "textual")
-        with torch.autocast(device.type, dtype=torch.bfloat16,
-                            enabled=ctx.mixed_precision):
-            pe_style = pse(style_mel, pitch, energy)
-            pred_pitch, pred_energy = pe(batch.text, batch.text_lengths, alignment,
-                                         pe_style, generator=state.dropout_generator)
-            pred_pitch, pred_energy = pred_pitch.float(), pred_energy.float()
-            pred = sp(
-                batch.text, batch.text_lengths, alignment, pred_pitch, pred_energy,
-                (pred_pitch > 20.0).to(torch.float32), se(style_mel), pred_pitch,
-                generator=None if ctx.parity_deterministic else state.model_generator,
-                prior=ctx.parity_prior, deterministic_prior=ctx.parity_deterministic,
-            )
-            feats_p = ctx.multi_spec(pred.audio.float())
-        pred_pitchcat = torch.stack([pred_pitch * voiced, pred_energy], dim=1)
-        metrics = {
-            "mel": L.spectral_convergence_loss(feats_t.mel, feats_p.mel),
-            "generator": L.generator_pair_loss(pitch_disc(pitchcat),
-                                               pitch_disc(pred_pitchcat)),
-            **L.pitch_energy_losses(pred_pitch, pitch, pred_energy, energy),
-        }
-        L.backwards_loss(metrics, ctx.weights).backward()
+        with span("train.gen.forward"):
+            with torch.autocast(device.type, dtype=torch.bfloat16,
+                                enabled=ctx.mixed_precision):
+                pe_style = pse(style_mel, pitch, energy)
+                pred_pitch, pred_energy = pe(batch.text, batch.text_lengths, alignment,
+                                             pe_style, generator=state.dropout_generator)
+                pred_pitch, pred_energy = pred_pitch.float(), pred_energy.float()
+                pred = sp(
+                    batch.text, batch.text_lengths, alignment, pred_pitch, pred_energy,
+                    (pred_pitch > 20.0).to(torch.float32), se(style_mel), pred_pitch,
+                    generator=None if ctx.parity_deterministic else state.model_generator,
+                    prior=ctx.parity_prior, deterministic_prior=ctx.parity_deterministic,
+                )
+                feats_p = ctx.multi_spec(pred.audio.float())
+            pred_pitchcat = torch.stack([pred_pitch * voiced, pred_energy], dim=1)
+            metrics = {
+                "mel": L.spectral_convergence_loss(feats_t.mel, feats_p.mel),
+                "generator": L.generator_pair_loss(pitch_disc(pitchcat),
+                                                   pitch_disc(pred_pitchcat)),
+                **L.pitch_energy_losses(pred_pitch, pitch, pred_energy, energy),
+            }
+        with span("train.gen.backward"):
+            L.backwards_loss(metrics, ctx.weights).backward()
         _update_trained(state, "textual", lr)
 
         d_loss, lr_mults = _prosody_disc_phase(state, "textual", pitchcat,
@@ -511,7 +545,7 @@ def make_textual_step(ctx: StepContext):
         out.update(lr_mults)
         return out
 
-    return step
+    return _traced(step)
 
 
 def make_duration_step(ctx: StepContext, duration_class_weights: torch.Tensor):
@@ -564,4 +598,4 @@ def make_duration_step(ctx: StepContext, duration_class_weights: torch.Tensor):
         out.update(lr_mults)
         return out
 
-    return step
+    return _traced(step)

@@ -5,12 +5,16 @@ Replaces the reference's pyloudnorm dependency for the -25 LUFS
 long-form normalization (reference: tts/cli.py:60, 85-87): K-weighting
 (high-shelf pre-filter + RLB high-pass) followed by gated mean-square
 measurement per the BS.1770-4 two-stage gating.
+
+Span (``utils/trace.py``): ``loudness.blocks``, the block mean squares.
 """
 
 from __future__ import annotations
 
 import numpy as np
 from scipy.signal import lfilter
+
+from ..utils.trace import span
 
 
 def _k_weighting_coeffs(sample_rate: float):
@@ -34,7 +38,6 @@ def _k_weighting_coeffs(sample_rate: float):
     q = 0.5003270373238773
     k = np.tan(np.pi * f0 / sample_rate)
     a0 = 1.0 + k / q + k * k
-    b_hp = [1.0, -2.0, 1.0]
     a_hp = [1.0, 2.0 * (k * k - 1.0) / a0, (1.0 - k / q + k * k) / a0]
     b_hp = [x / a0 for x in [1.0, -2.0, 1.0]]
     return (np.array(b_shelf), np.array(a_shelf)), (
@@ -53,9 +56,10 @@ def integrated_loudness(audio: np.ndarray, sample_rate: int) -> float:
     if x.shape[0] < block:
         ms = float(np.mean(x**2) + 1e-12)
         return -0.691 + 10.0 * np.log10(ms)
-    n_blocks = (x.shape[0] - block) // hop + 1
-    idx = np.arange(n_blocks)[:, None] * hop + np.arange(block)[None, :]
-    ms = np.mean(x[idx] ** 2, axis=1) + 1e-12
+    with span("loudness.blocks"):
+        n_blocks = (x.shape[0] - block) // hop + 1
+        idx = np.arange(n_blocks)[:, None] * hop + np.arange(block)[None, :]
+        ms = np.mean(x[idx] ** 2, axis=1) + 1e-12
     lk = -0.691 + 10.0 * np.log10(ms)
 
     # absolute gate at -70 LUFS

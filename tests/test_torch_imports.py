@@ -35,7 +35,8 @@ assert not leaked, leaked
 from stylish_tts_torch.ops import ctc_cuda
 assert not ctc_cuda._libs, "kernel library loaded at import time"
 for name in ("stylish_tts_torch.parallel", "stylish_tts_torch.parallel.mesh",
-             "stylish_tts_torch.utils.flops", "stylish_tts_torch.export.programs"):
+             "stylish_tts_torch.utils.flops", "stylish_tts_torch.export.programs",
+             "stylish_tts_torch.utils.trace"):
     assert name in names, name
 from stylish_tts_torch import parallel
 assert parallel.world_size() == 1, "a process group made at import time"

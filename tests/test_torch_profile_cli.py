@@ -5,8 +5,10 @@ trace written as ``DIR/trace_rank0.json``.
 On the CPU, at the tiny config (``tests/test_torch_synth_common.py``), the
 acoustic stage alone (``trainer/loop.NEXT_STAGE`` emptied) for 2 steps: the
 trace is JSON with the operations of both steps' generator and
-discriminator phases (the convolutions and their backward), and the run
-trains as it does without the flag (the same metrics, bitwise).
+discriminator phases (the convolutions and their backward) and the
+program's spans (``utils/trace.py``) on the trace's time base, each
+``train.step`` around its step's operations, and the run trains as it does
+without the flag (the same metrics, bitwise).
 """
 
 import json
@@ -63,3 +65,27 @@ def test_profile_writes_a_readable_chrome_trace(runs):
 def test_profiled_run_trains_as_the_plain_one(runs):
     _, results = runs
     assert results["profiled"].step_metrics == results["plain"].step_metrics
+
+
+def test_profile_holds_the_program_spans_around_their_operations(runs):
+    root, _ = runs
+    trace = json.loads((root / "trace" / "trace_rank0.json").read_text(encoding="utf-8"))
+    spans = [e for e in trace["traceEvents"] if e.get("cat") == "program_span"]
+    steps = sorted((e for e in spans if e["name"] == "train.step"), key=lambda e: e["ts"])
+    assert [e["args"]["unit"] for e in steps] == [0, 1]
+    names = {e["name"] for e in spans}
+    assert names >= {"train.features", "train.gen.forward", "train.gen.backward",
+                     "train.gen.update", "train.disc.forward", "train.disc.backward",
+                     "train.disc.update", "train.sync.finite", "train.sync.ema",
+                     "loader.load", "loader.wait"}
+    assert trace["programSpansDropped"] == 0
+    # the backward of a step's convolutions runs inside that step's span
+    backward = [e for e in trace["traceEvents"] if e.get("cat") == "cpu_op"
+                and "ConvolutionBackward" in e.get("name", "")]
+    assert backward
+
+    def within(op, step):
+        return step["ts"] <= op["ts"] and op["ts"] + op["dur"] <= step["ts"] + step["dur"]
+
+    assert all(sum(within(op, step) for step in steps) == 1 for op in backward)
+    assert all(any(within(op, step) for op in backward) for step in steps)

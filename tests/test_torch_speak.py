@@ -104,6 +104,8 @@ def test_speak_on_the_cpu_writes_a_wav(package):
     ])
     assert result.exit_code == 0, result.output + repr(result.exception)
     assert "(2 utterances)" in result.output
+    # no duration stats: two-phase, both lines in text bucket 32
+    assert "programs built while speaking: fused 0, duration 1, acoustic " in result.output
     audio = read_wav(str(out), mc.sample_rate)
     assert audio.ndim == 1 and audio.shape[0] > 0
     assert np.isfinite(audio).all() and np.abs(audio).max() <= 1.0
