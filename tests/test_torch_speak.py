@@ -7,6 +7,8 @@ cpu`` writes a wav from a static voicepack (tiny config, random weights);
 without ``--device`` it asks for CUDA and raises where there is none.
 """
 
+import tracemalloc
+
 import numpy as np
 import pytest
 import torch
@@ -38,16 +40,52 @@ def _styles(n=240, dim=16, seed=0):
     }
 
 
-@pytest.mark.parametrize("seconds", [0.2, 3.0])
-def test_loudness_equals_jax(seconds):
-    rng = np.random.default_rng(1)
-    n = int(seconds * 24000)
-    audio = (0.3 * np.sin(2 * np.pi * 220 * np.arange(n) / 24000)
-             + 0.05 * rng.standard_normal(n)).astype(np.float32)
-    assert loudness.integrated_loudness(audio, 24000) == \
-        jloudness.integrated_loudness(audio, 24000)
-    np.testing.assert_array_equal(loudness.normalize_loudness(audio, 24000),
-                                  jloudness.normalize_loudness(audio, 24000))
+def _tone(seconds, rate, seed=1):
+    rng = np.random.default_rng(seed)
+    n = int(seconds * rate)
+    return (0.3 * np.sin(2 * np.pi * 220 * np.arange(n) / rate)
+            + 0.05 * rng.standard_normal(n)).astype(np.float32)
+
+
+# 21.15 s and 38.25 s are a median and the longest book line at 24 kHz
+# (the longest: 510 tokens x 6 frames x 300 samples); at 11025 Hz a 400 ms
+# block (4410 samples) is not four 100 ms hops (1102 samples).
+@pytest.mark.parametrize("seconds, rate", [
+    pytest.param(0.2, 24000, id="0.2"),
+    pytest.param(3.0, 24000, id="3.0"),
+    pytest.param(21.15, 24000, id="21.15"),
+    pytest.param(38.25, 24000, id="38.25"),
+    pytest.param(3.0, 22050, id="3.0-22050"),
+    pytest.param(3.0, 16000, id="3.0-16000"),
+    pytest.param(3.0, 11025, id="3.0-11025"),
+    pytest.param(38.25, 11025, id="38.25-11025"),
+])
+def test_loudness_equals_jax(seconds, rate):
+    audio = _tone(seconds, rate)
+    assert loudness.integrated_loudness(audio, rate) == \
+        jloudness.integrated_loudness(audio, rate)
+    np.testing.assert_array_equal(loudness.normalize_loudness(audio, rate),
+                                  jloudness.normalize_loudness(audio, rate))
+
+
+def test_loudness_blocks_take_no_block_matrix():
+    """The block mean squares read a strided view of the squared signal.
+
+    On a 38.25 s line at 24 kHz the allocation peak of `integrated_loudness`
+    reads 2.0 times the float64 signal's bytes (the float64 copy of the
+    input and the filtered signal, then its square); a gather of every
+    block's samples into a (blocks, 9600) matrix read 12.9 times. The bound,
+    4 times, leaves twice the view's reading and catches any per-block copy.
+    """
+    audio = _tone(38.25, 24000)
+    signal_bytes = audio.shape[0] * 8
+    tracemalloc.start()
+    try:
+        loudness.integrated_loudness(audio, 24000)
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert peak < 4 * signal_bytes, peak / signal_bytes
 
 
 def test_static_voicepack_equals_jax(tmp_path):
