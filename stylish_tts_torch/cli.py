@@ -493,12 +493,15 @@ def speak(package_dir, voicepack_path, text_path, out_path, speed, device):
     CUDA graph on the card), built at the first line that needs it and
     replayed from then on."""
     from .data.wav import write_wav
-    from .export.package import BUILT, InferencePackage
+    from .export import KokoroPackage, open_package
+    from .export.package import BUILT
     from .tts.loudness import normalize_loudness
     from .tts.voicepack import load_voicepack, lookup_dynamic_style, lookup_static_style
 
-    pkg = InferencePackage(package_dir, device=device)
+    pkg = open_package(package_dir, device=device)
     built = dict(BUILT)
+    if isinstance(pkg, KokoroPackage):
+        return _speak_kokoro(pkg, voicepack_path, text_path, out_path, speed, built)
     pack = load_voicepack(voicepack_path)
     embed = None
     if pack["kind"] == "dynamic":
@@ -526,6 +529,34 @@ def speak(package_dir, voicepack_path, text_path, out_path, speed, device):
     )
     click.echo("programs built while speaking: "
                + ", ".join(f"{phase} {BUILT[phase] - built[phase]}" for phase in BUILT))
+
+
+def _speak_kokoro(pkg, voicepack_path, text_path, out_path, speed, built):
+    """``speak`` for a Kokoro package: each line's phonemes through the
+    configuration's vocabulary, the voicepack's row of the line's length."""
+    from .data.wav import write_wav
+    from .export.kokoro import FRAMES, load_voice, voice_row
+    from .export.package import BUILT
+    from .tts.loudness import normalize_loudness
+
+    voice = load_voice(voicepack_path)
+    frames = dict(FRAMES)
+    pieces = []
+    with open(text_path, encoding="utf-8") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            ids = pkg.tokenize(line)
+            audio = pkg.generate_speech(ids, voice_row(voice, ids.shape[0]), speed=speed)
+            pieces.append(normalize_loudness(audio, pkg.mc.sample_rate))
+    full = np.concatenate(pieces) if pieces else np.zeros(1, np.float32)
+    write_wav(out_path, full, pkg.mc.sample_rate)
+    click.echo(f"wrote {out_path}: {full.shape[0] / pkg.mc.sample_rate:.2f}s "
+               f"({len(pieces)} utterances)")
+    click.echo("programs built while speaking: "
+               + ", ".join(f"{phase} {BUILT[phase] - built[phase]}" for phase in BUILT)
+               + "; frames: " + ", ".join(f"{k} {FRAMES[k] - frames[k]}" for k in FRAMES))
 
 
 @tts_cli.command("prepare-book")

@@ -1,8 +1,10 @@
 """Configuration schemas.
 
 The PyTorch port's own copy of ``stylish_tts_tpu/config.py``: the port
-imports nothing of the JAX package, and the two copies stay identical so
-the same ``configs/*.yml`` files load in both.
+imports nothing of the JAX package, and the Stylish schemas of the two
+copies stay identical so the same ``configs/*.yml`` files load in both.
+``KokoroConfig`` (Kokoro-82M, a model the JAX package does not run) is
+the port's own.
 
 YAML-compatible with the reference's two config files
 (reference: src/stylish_tts/lib/config_loader.py:322,348 and
@@ -16,7 +18,8 @@ serialized into checkpoints (reference: config_loader.py:341-345).
 from __future__ import annotations
 
 import json
-from typing import List
+import math
+from typing import Dict, List, Literal
 
 import yaml
 from pydantic import BaseModel, Field
@@ -270,6 +273,66 @@ class ModelConfig(BaseModel):
         loaded = ModelConfig.model_validate(json.loads(state["json"]))
         for field in ModelConfig.model_fields:
             setattr(self, field, getattr(loaded, field))
+
+
+# --------------------------------------------------------------------------
+# Kokoro-82M (hexgrad/Kokoro-82M config.json), inference only
+# --------------------------------------------------------------------------
+
+
+class PlbertConfig(BaseModel):
+    """The ALBERT encoder: one layer applied ``num_hidden_layers`` times."""
+
+    hidden_size: int = 768
+    num_attention_heads: int = 12
+    intermediate_size: int = 2048
+    max_position_embeddings: int = 512
+    num_hidden_layers: int = 12
+    embedding_size: int = 128
+
+
+class IstftnetConfig(BaseModel):
+    upsample_kernel_sizes: List[int] = [20, 12]
+    upsample_rates: List[int] = [10, 6]
+    gen_istft_hop_size: int = 5
+    gen_istft_n_fft: int = 20
+    resblock_dilation_sizes: List[List[int]] = [[1, 3, 5], [1, 3, 5], [1, 3, 5]]
+    resblock_kernel_sizes: List[int] = [3, 7, 11]
+    upsample_initial_channel: int = 512
+
+
+class KokoroConfig(BaseModel):
+    """Kokoro-82M's ``config.json`` (the StyleTTS2 line: ALBERT, prosody
+    predictor, text encoder and iSTFTNet decoder); its defaults are the
+    published widths. ``vocab`` maps a phoneme to its id (empty until the
+    published map is given; ``speak`` needs it, the benchmark feeds ids).
+    Only the fields the inference forward reads are here: the published
+    file's others (``dim_in``, ``dropout``, ``max_conv_dim``,
+    ``multispeaker``, ``n_mels``, ``plbert.dropout``) load and are
+    ignored."""
+
+    family: Literal["kokoro"] = "kokoro"
+    istftnet: IstftnetConfig = IstftnetConfig()
+    hidden_dim: int = 512
+    max_dur: int = 50
+    n_layer: int = 3
+    n_token: int = 178
+    style_dim: int = 128
+    text_encoder_kernel_size: int = 5
+    plbert: PlbertConfig = PlbertConfig()
+    vocab: Dict[str, int] = {}
+    sample_rate: int = 24000
+    # literals of kokoro's istftnet.Decoder (encode and decode widths, the
+    # asr residual's channels), named here so that a test can cut them
+    decoder_dim: int = 1024
+    asr_res_dim: int = 64
+
+    @property
+    def frame_samples(self) -> int:
+        """Samples per alignment frame: two F0 frames, each
+        prod(upsample_rates) x the iSTFT hop."""
+        ist = self.istftnet
+        return 2 * math.prod(ist.upsample_rates) * ist.gen_istft_hop_size
 
 
 # --------------------------------------------------------------------------

@@ -1,3 +1,18 @@
+import json
+import os.path as osp
+
+from .kokoro import KokoroPackage
 from .package import InferencePackage, export_checkpoint
 
-__all__ = ["InferencePackage", "export_checkpoint"]
+
+def open_package(package_dir: str, device: str = "cuda") -> InferencePackage:
+    """The package in ``package_dir`` as its family's class: a
+    ``KokoroPackage`` where ``metadata.json`` names the family ``kokoro``
+    (``export_kokoro`` writes it), else an ``InferencePackage``."""
+    with open(osp.join(package_dir, "metadata.json"), encoding="utf-8") as f:
+        family = json.load(f).get("family")
+    cls = KokoroPackage if family == "kokoro" else InferencePackage
+    return cls(package_dir, device=device)
+
+
+__all__ = ["InferencePackage", "KokoroPackage", "export_checkpoint", "open_package"]

@@ -55,7 +55,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import ModelConfig
+from ..config import KokoroConfig, ModelConfig
 from ..convert.from_jax import module_from_jax, module_to_jax_flat
 from ..models import INFERENCE_MODULES, build_inference_models
 from ..models.generator import SourceDraws
@@ -196,7 +196,13 @@ def export_checkpoint(
     """Write the six ``INFERENCE_MODULES`` of ``models`` (``build_models``'
     registry names) as a package directory in the JAX layout; with
     ``emit_exported_program``, also the acoustic phase at (32, 100) as a
-    ``torch.export`` program traced on ``device``."""
+    ``torch.export`` program traced on ``device``. A ``KokoroConfig``
+    writes a Kokoro package instead (``export/kokoro.py``; the
+    normalisation and statistics do not apply)."""
+    if isinstance(model_config, KokoroConfig):
+        from .kokoro import export_kokoro
+
+        return export_kokoro(models, model_config, out_dir)
     os.makedirs(out_dir, exist_ok=True)
     flat = {}
     for name in INFERENCE_MODULES:
@@ -293,7 +299,8 @@ class InferencePackage:
     Requests go through one program per bucket (``programs.BucketProgram``),
     built on the first request at its bucket or ahead of time by ``warmup``;
     the eager ``durations``, ``acoustic`` and ``fused`` are the functions the
-    programs run."""
+    programs run. ``export.open_package`` opens a directory of either
+    family as its own class."""
 
     def __init__(self, package_dir: str, device: str = "cuda"):
         params = load_params_safetensors(osp.join(package_dir, "params.safetensors"))

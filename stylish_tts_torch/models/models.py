@@ -21,9 +21,10 @@ from typing import Dict
 
 from torch import nn
 
-from ..config import ModelConfig
+from ..config import KokoroConfig, ModelConfig
 from .discriminators import ContextFreeDiscriminator, PitchDiscriminator, SpecDiscriminator
 from .duration_predictor import DurationPredictor
+from .kokoro import build_kokoro_models
 from .pitch_energy_predictor import PitchEnergyPredictor
 from .speech_predictor import SpeechPredictor
 from .style_encoder import MelStyleEncoder, PitchStyleEncoder
@@ -75,7 +76,10 @@ def build_inference_models(model_config: ModelConfig) -> Dict[str, nn.Module]:
 
 def build_models(model_config: ModelConfig) -> Dict[str, nn.Module]:
     """Every module of ``build_model`` but the aligner, with its
-    ``norm_mode``, ``sn`` and ``generator.remat`` rules."""
+    ``norm_mode``, ``sn`` and ``generator.remat`` rules. Kokoro (a
+    ``KokoroConfig``) has inference modules only."""
+    if isinstance(model_config, KokoroConfig):
+        return build_kokoro_models(model_config)
     mc = model_config
     se = mc.style_encoder
     sn = not mc.imported_weights
