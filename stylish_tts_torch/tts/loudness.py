@@ -6,7 +6,14 @@ long-form normalization (reference: tts/cli.py:60, 85-87): K-weighting
 (high-shelf pre-filter + RLB high-pass) followed by gated mean-square
 measurement per the BS.1770-4 two-stage gating.
 
-Span (``utils/trace.py``): ``loudness.blocks``, the block mean squares.
+The K-weighting filters and the square run in one native float64 pass
+(``native/loudness.cpp``, built when this module is imported), bitwise
+scipy's two ``lfilter`` passes; where the library cannot be built, and for
+input other than 1-D float32, scipy runs them.
+
+Spans (``utils/trace.py``): ``loudness.filter``, the K-weighted signal
+squared; ``loudness.blocks``, the block mean squares. Counter
+``loudness.path`` (``PATH``): the calls the native pass or scipy served.
 """
 
 from __future__ import annotations
@@ -15,7 +22,13 @@ import numpy as np
 from numpy.lib.stride_tricks import sliding_window_view
 from scipy.signal import lfilter
 
-from ..utils.trace import span
+from .. import native
+from ..utils.trace import counter, span
+
+PATH = counter("loudness.path", ("native", "scipy"))
+# built at import, not at the first call: a caller that imports this module
+# in its set-up pays no compile in its first timed call
+_LIB = native.loudness_library()
 
 
 def _k_weighting_coeffs(sample_rate: float):
@@ -46,21 +59,35 @@ def _k_weighting_coeffs(sample_rate: float):
     )
 
 
+def _k_weighted_square(audio: np.ndarray, sample_rate: int) -> np.ndarray:
+    """The K-weighted signal squared, float64: bitwise
+    ``lfilter(bh, ah, lfilter(bs, as_, audio.astype(np.float64))) ** 2``."""
+    (bs, as_), (bh, ah) = _k_weighting_coeffs(sample_rate)
+    if _LIB is not None and audio.dtype == np.float32 and audio.ndim == 1:
+        # the native pass skips scipy's division by a[0]
+        assert as_[0] == 1.0 and ah[0] == 1.0
+        PATH["native"] += 1
+        return native.k_weighted_square(
+            audio, np.concatenate([bs, as_[1:], bh, ah[1:]]), _LIB)
+    PATH["scipy"] += 1
+    x = lfilter(bh, ah, lfilter(bs, as_, audio.astype(np.float64)))
+    return x * x
+
+
 def integrated_loudness(audio: np.ndarray, sample_rate: int) -> float:
     """Mono integrated loudness in LUFS (BS.1770-4 gating)."""
-    (bs, as_), (bh, ah) = _k_weighting_coeffs(sample_rate)
-    x = lfilter(bs, as_, audio.astype(np.float64))
-    x = lfilter(bh, ah, x)
+    with span("loudness.filter"):
+        sq = _k_weighted_square(audio, sample_rate)
 
     block = int(0.4 * sample_rate)  # 400 ms blocks
     hop = int(0.1 * sample_rate)  # 75% overlap
-    if x.shape[0] < block:
-        ms = float(np.mean(x**2) + 1e-12)
+    if sq.shape[0] < block:
+        ms = float(np.mean(sq) + 1e-12)
         return -0.691 + 10.0 * np.log10(ms)
     with span("loudness.blocks"):
         # One row per block, a strided view of the squared signal: no copy of
         # the blocks, and the JAX copy's sums to the last bit.
-        blocks = sliding_window_view(x * x, block)[::hop]
+        blocks = sliding_window_view(sq, block)[::hop]
         ms = np.mean(blocks, axis=1) + 1e-12
     lk = -0.691 + 10.0 * np.log10(ms)
 

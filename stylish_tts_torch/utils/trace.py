@@ -20,7 +20,8 @@ Counters are named groups of integers in one registry (``COUNTERS``), each
 a ``collections.Counter`` bumped with a plain add, always on: the loader's
 batches by audio path (``loader.batches``), the CTC kernels' launches
 (``ctc.launches``), the synthesis programs built per phase
-(``programs.built``).
+(``programs.built``), the loudness step's calls by filter path
+(``loudness.path``: ``native`` or ``scipy``).
 
 Never open a span inside a phase function that a CUDA graph captures: it
 would run at the capture only, never at a replay.

@@ -259,8 +259,10 @@ def test_traced_loudness_equals_jax(seconds):
     with session() as got:
         out = loudness.normalize_loudness(audio, 24000)
     np.testing.assert_array_equal(out, jloudness.normalize_loudness(audio, 24000))
-    # a line shorter than one 400 ms block has no block means
-    assert [s.name for s in got] == (["loudness.blocks"] if seconds > 0.4 else [])
+    # the K-weighting pass, then the block means; a line shorter than one
+    # 400 ms block has none
+    assert [s.name for s in got] == \
+        ["loudness.filter"] + (["loudness.blocks"] if seconds > 0.4 else [])
 
 
 def test_spans_nest_per_thread_and_take_their_parents_unit():
