@@ -493,33 +493,19 @@ def speak(package_dir, voicepack_path, text_path, out_path, speed, device):
     CUDA graph on the card), built at the first line that needs it and
     replayed from then on."""
     from .data.wav import write_wav
-    from .export import KokoroPackage, open_package
-    from .export.package import BUILT
+    from .export import open_package
     from .tts.loudness import normalize_loudness
-    from .tts.voicepack import load_voicepack, lookup_dynamic_style, lookup_static_style
 
     pkg = open_package(package_dir, device=device)
-    built = dict(BUILT)
-    if isinstance(pkg, KokoroPackage):
-        return _speak_kokoro(pkg, voicepack_path, text_path, out_path, speed, built)
-    pack = load_voicepack(voicepack_path)
-    embed = None
-    if pack["kind"] == "dynamic":
-        from .textproc.embed import get_embedder
-
-        embed = get_embedder()
+    before = [dict(c) for _, c in pkg.SPEAK_COUNTERS]
+    voice = pkg.load_voice(voicepack_path)
     pieces = []
     with open(text_path, encoding="utf-8") as f:
         for line in f:
             line = line.strip()
             if not line:
                 continue
-            tokens = pkg.tokenize(line)
-            if embed is not None:
-                styles = lookup_dynamic_style(pack, embed([line])[0])
-            else:
-                styles = lookup_static_style(pack, tokens.shape[0])
-            audio = pkg.generate_speech(tokens, *styles, speed=speed)
+            audio = pkg.speak_line(line, voice, speed)
             pieces.append(normalize_loudness(audio, pkg.mc.sample_rate))
     full = np.concatenate(pieces) if pieces else np.zeros(1, np.float32)
     write_wav(out_path, full, pkg.mc.sample_rate)
@@ -527,36 +513,8 @@ def speak(package_dir, voicepack_path, text_path, out_path, speed, device):
         f"wrote {out_path}: {full.shape[0] / pkg.mc.sample_rate:.2f}s "
         f"({len(pieces)} utterances)"
     )
-    click.echo("programs built while speaking: "
-               + ", ".join(f"{phase} {BUILT[phase] - built[phase]}" for phase in BUILT))
-
-
-def _speak_kokoro(pkg, voicepack_path, text_path, out_path, speed, built):
-    """``speak`` for a Kokoro package: each line's phonemes through the
-    configuration's vocabulary, the voicepack's row of the line's length."""
-    from .data.wav import write_wav
-    from .export.kokoro import FRAMES, load_voice, voice_row
-    from .export.package import BUILT
-    from .tts.loudness import normalize_loudness
-
-    voice = load_voice(voicepack_path)
-    frames = dict(FRAMES)
-    pieces = []
-    with open(text_path, encoding="utf-8") as f:
-        for line in f:
-            line = line.strip()
-            if not line:
-                continue
-            ids = pkg.tokenize(line)
-            audio = pkg.generate_speech(ids, voice_row(voice, ids.shape[0]), speed=speed)
-            pieces.append(normalize_loudness(audio, pkg.mc.sample_rate))
-    full = np.concatenate(pieces) if pieces else np.zeros(1, np.float32)
-    write_wav(out_path, full, pkg.mc.sample_rate)
-    click.echo(f"wrote {out_path}: {full.shape[0] / pkg.mc.sample_rate:.2f}s "
-               f"({len(pieces)} utterances)")
-    click.echo("programs built while speaking: "
-               + ", ".join(f"{phase} {BUILT[phase] - built[phase]}" for phase in BUILT)
-               + "; frames: " + ", ".join(f"{k} {FRAMES[k] - frames[k]}" for k in FRAMES))
+    click.echo("; ".join(f"{label}: " + ", ".join(f"{k} {c[k] - b[k]}" for k in c)
+                         for (label, c), b in zip(pkg.SPEAK_COUNTERS, before)))
 
 
 @tts_cli.command("prepare-book")

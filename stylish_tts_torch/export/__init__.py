@@ -3,9 +3,10 @@ import os.path as osp
 
 from .kokoro import KokoroPackage
 from .package import InferencePackage, export_checkpoint
+from .programs import BucketPackage
 
 
-def open_package(package_dir: str, device: str = "cuda") -> InferencePackage:
+def open_package(package_dir: str, device: str = "cuda") -> BucketPackage:
     """The package in ``package_dir`` as its family's class: a
     ``KokoroPackage`` where ``metadata.json`` names the family ``kokoro``
     (``export_kokoro`` writes it), else an ``InferencePackage``."""

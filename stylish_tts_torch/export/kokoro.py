@@ -16,7 +16,7 @@ reads the durations and sums them to the line's frames f; the acoustic
 program at (L, frame_bucket(f)) builds the one-hot alignment in the graph
 and gives the audio. Both are ``programs.BucketProgram``s (CUDA graphs on
 the card) in the package's one pool, cached in ``_duration_fns[L]`` and
-``_acoustic_fns[(L, F)]`` as the Stylish package caches its own, at batch
+``_acoustic_fns[(L, F)]`` (``programs.BucketPackage``'s caches), at batch
 1. The source's noise of a frame bucket's program is drawn once, from a
 generator seeded 0.
 
@@ -41,13 +41,11 @@ from torch import nn
 
 from ..config import KokoroConfig
 from ..models import kokoro as K
-from ..utils.device import resolve_device
 from ..utils.trace import counter, span
-from .package import InferencePackage, frame_bucket
+from .programs import SOURCE_SEED, BucketPackage, frame_bucket
 
 # frames a line needs and frames its acoustic program computed
 FRAMES = counter("speak.frames", ("real", "bucket"))
-SOURCE_SEED = 0
 
 
 def export_kokoro(models: Mapping[str, nn.Module], config: KokoroConfig, out_dir: str) -> str:
@@ -77,13 +75,15 @@ def voice_row(pack: np.ndarray, n_ids: int) -> np.ndarray:
     return pack[min(max(n_ids - 3, 0), pack.shape[0] - 1)]
 
 
-class KokoroPackage(InferencePackage):
+class KokoroPackage(BucketPackage):
     """A Kokoro package on ``device``; ``generate_speech(ids, ref_s)``."""
+
+    SPEAK_COUNTERS = BucketPackage.SPEAK_COUNTERS + (("frames", FRAMES),)
 
     def __init__(self, package_dir: str, device: str = "cuda"):
         with open(osp.join(package_dir, "model_config.json"), encoding="utf-8") as f:
             self.mc = KokoroConfig.model_validate_json(f.read())
-        self.device = resolve_device(device)
+        super().__init__(device)
         params = load_file(osp.join(package_dir, "params.safetensors"))
         built = K.build_kokoro_models(self.mc)
         for name, module in built.items():
@@ -92,14 +92,8 @@ class KokoroPackage(InferencePackage):
                                     if k.startswith(prefix)})
             module.to(self.device).eval()
         self.models = built
-        self.duration_stats = None
         self.hop = self.mc.frame_samples
-        self._duration_fns: Dict[int, dict] = {}
-        self._acoustic_fns: Dict[tuple, dict] = {}
         self._noise: Dict[int, torch.Tensor] = {}
-        self._pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
-                      else None)
-        self._lines = 0
         self.last_durations = None  # the integer durations of the last line
 
     @torch.inference_mode()
@@ -156,6 +150,12 @@ class KokoroPackage(InferencePackage):
 
     # ---- public API ------------------------------------------------------
 
+    load_voice = staticmethod(load_voice)
+
+    def speak_line(self, text: str, voice, speed: float = 1.0) -> np.ndarray:
+        ids = self.tokenize(text)
+        return self.generate_speech(ids, voice_row(voice, ids.shape[0]), speed=speed)
+
     def tokenize(self, text: str) -> np.ndarray:
         """Phoneme text -> ids through the configuration's vocabulary, with
         the two 0 pads (characters outside it are dropped, as kokoro does)."""
@@ -167,21 +167,17 @@ class KokoroPackage(InferencePackage):
     def generate_speech(self, tokens: np.ndarray, ref_s, speed: float = 1.0) -> np.ndarray:
         """ids (n,), the line's phoneme ids between two 0 pads, and the
         voice's row ref_s (256,) -> waveform float32 (600 f,) at 24 kHz."""
-        self._lines += 1
-        with span("speak.line", self._lines):
-            return self._generate_speech(tokens, ref_s, speed)
-
-    def _generate_speech(self, tokens, ref_s, speed):
-        L, host, inputs = self._line_durations(tokens, ref_s, speed)
-        with span("speak.prep"):
-            total = int(host.sum())
-            F = frame_bucket(total)
-            FRAMES["real"] += total
-            FRAMES["bucket"] += F
-        self.last_durations = host[:tokens.shape[0]].astype(np.int64)
-        audio = self._acoustic_fn(L, F, inputs)(*inputs)
-        with span("speak.fetch"):
-            return audio[0, :total * self.hop].cpu().numpy()
+        with self._line():
+            L, host, inputs = self._line_durations(tokens, ref_s, speed)
+            with span("speak.prep"):
+                total = int(host.sum())
+                F = frame_bucket(total)
+                FRAMES["real"] += total
+                FRAMES["bucket"] += F
+            self.last_durations = host[:tokens.shape[0]].astype(np.int64)
+            audio = self._acoustic_fn(L, F, inputs)(*inputs)
+            with span("speak.fetch"):
+                return audio[0, :total * self.hop].cpu().numpy()
 
     def _line_durations(self, tokens, ref_s, speed):
         """The duration program on one line: (text bucket, the durations on

@@ -62,36 +62,17 @@ from ..models.generator import SourceDraws
 from ..ops.duration import DurationProcessor
 from ..text import TextCleaner
 from ..trainer.normalization import NormalizationStats
-from ..utils.device import resolve_device
 from ..utils.params_io import load_params_safetensors, save_params_safetensors
-from ..utils.trace import counter, span
-from .programs import BucketProgram
+from ..utils.trace import span
+from .kokoro import export_kokoro
+from .programs import (  # noqa: F401  (BUILT, text_bucket: imported from here too)
+    BUILT, FRAME_BUCKET_STEP, SOURCE_SEED, TEXT_BUCKETS, BucketPackage, BucketProgram,
+    frame_bucket, text_bucket)
 
 logger = logging.getLogger("stylish_tts_torch")
 
-# programs built, by phase: a build inside a run means no warmup covered it
-BUILT = counter("programs.built", ("fused", "duration", "acoustic"))
-
-TEXT_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512)
-FRAME_BUCKET_STEP = 100
-SOURCE_SEED = 0
 # frame buckets per text bucket that ``warmup`` builds at most
 MAX_FRAMES_PER_BUCKET = 8
-
-
-def frame_bucket(total_frames: int) -> int:
-    return max(
-        ((total_frames + FRAME_BUCKET_STEP - 1) // FRAME_BUCKET_STEP)
-        * FRAME_BUCKET_STEP,
-        FRAME_BUCKET_STEP,
-    )
-
-
-def text_bucket(n: int) -> int:
-    for b in TEXT_BUCKETS:
-        if n <= b:
-            return b
-    raise ValueError(f"text too long for inference buckets: {n}")
 
 
 def duration_stats_from_cache(cache: Mapping) -> Dict[str, float]:
@@ -200,8 +181,6 @@ def export_checkpoint(
     writes a Kokoro package instead (``export/kokoro.py``; the
     normalisation and statistics do not apply)."""
     if isinstance(model_config, KokoroConfig):
-        from .kokoro import export_kokoro
-
         return export_kokoro(models, model_config, out_dir)
     os.makedirs(out_dir, exist_ok=True)
     flat = {}
@@ -292,7 +271,7 @@ class AcousticPhase(nn.Module):
                               source_draws=SourceDraws(rand_ini, noise))
 
 
-class InferencePackage:
+class InferencePackage(BucketPackage):
     """Loads a package directory and synthesises speech on ``device``
     (``cuda`` unless the caller asks for ``cpu``).
 
@@ -308,7 +287,7 @@ class InferencePackage:
             mc = ModelConfig.model_validate_json(f.read())
         with open(osp.join(package_dir, "metadata.json"), encoding="utf-8") as f:
             meta = json.load(f)
-        self.device = resolve_device(device)
+        super().__init__(device)
         self.mc = mc
         self.normalization = NormalizationStats(**meta["normalization"])
         self.duration_stats = meta.get("duration_stats") or None
@@ -329,18 +308,8 @@ class InferencePackage:
         self.text_cleaner = TextCleaner(mc.symbol)
         self.duration_processor = DurationProcessor(
             mc.duration_predictor.duration_classes, mc.duration_predictor.max_duration)
-        # the programs per bucket, as the JAX package names them; an entry
-        # maps the batch size to its program
-        self._duration_fns: Dict[int, Dict[int, BucketProgram]] = {}
-        self._acoustic_fns: Dict[tuple, Dict[int, BucketProgram]] = {}
         self._fused_fns: Dict[tuple, Dict[int, BucketProgram]] = {}
         self._source_draws: Dict[tuple, SourceDraws] = {}
-        self._pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
-                      else None)
-        self._lines = 0  # generate_speech calls: the unit of their spans
-
-    def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
-        return torch.as_tensor(np.array(x), dtype=dtype, device=self.device)
 
     def _source_generators(self, batch: int):
         return [torch.Generator(device=self.device).manual_seed(SOURCE_SEED)
@@ -409,17 +378,6 @@ class InferencePackage:
         return frame_bucket(int(np.ceil(n_tokens * p95 / speed)))
 
     # ---- programs per bucket ---------------------------------------------
-
-    def _program(self, phase: str, cache: dict, key, batch: int, fn,
-                 example_inputs) -> BucketProgram:
-        """The cached program, built on a miss with static inputs cloned from
-        ``example_inputs`` (a request's own tensors keep their strides, and
-        with them the kernels the eager call on them would run)."""
-        entry = cache.setdefault(key, {})
-        if batch not in entry:
-            entry[batch] = BucketProgram(fn, example_inputs, pool=self._pool)
-            BUILT[phase] += 1
-        return entry[batch]
 
     def _example(self, batch: int, L: int, *styles: str):
         sd = self.mc.style_dim
@@ -503,13 +461,23 @@ class InferencePackage:
     def tokenize(self, text: str) -> np.ndarray:
         return np.asarray(self.text_cleaner(text), np.int32)
 
-    def _texts(self, token_lists):
-        lens = np.asarray([t.shape[0] for t in token_lists], np.int32)
-        L = text_bucket(int(lens.max()))
-        texts = np.zeros((len(token_lists), L), np.int32)
-        for i, t in enumerate(token_lists):
-            texts[i, :t.shape[0]] = t
-        return self._tensor(texts, torch.long), self._tensor(lens, torch.long)
+    def load_voice(self, path: str):
+        """A static or dynamic voicepack as the function that gives a line's
+        three styles from its text and tokens. Imported here: the ``tts``
+        package is heavy, and synthesis without ``speak`` needs none of it."""
+        from ..tts.voicepack import load_voicepack, lookup_dynamic_style, lookup_static_style
+
+        pack = load_voicepack(path)
+        if pack["kind"] != "dynamic":
+            return lambda text, tokens: lookup_static_style(pack, tokens.shape[0])
+        from ..textproc.embed import get_embedder
+
+        embed = get_embedder()
+        return lambda text, tokens: lookup_dynamic_style(pack, embed([text])[0])
+
+    def speak_line(self, text: str, voice, speed: float = 1.0) -> np.ndarray:
+        tokens = self.tokenize(text)
+        return self.generate_speech(tokens, *voice(text, tokens), speed=speed)
 
     def generate_speech(self, tokens: np.ndarray, speech_style, pe_style,
                         duration_style, speed: float = 1.0,
@@ -519,44 +487,38 @@ class InferencePackage:
 
         ``fused=None`` takes the fused path when the package carries
         duration stats; True forces it (needs stats), False two-phase."""
-        self._lines += 1
-        with span("speak.line", self._lines):
-            return self._generate_speech(tokens, speech_style, pe_style, duration_style,
-                                         speed, fused)
-
-    def _generate_speech(self, tokens, speech_style, pe_style, duration_style, speed,
-                         fused):
-        with span("speak.prep"):
-            texts, lengths = self._texts([tokens])
-            L = texts.shape[1]
-            hop = self.mc.hop_length * self.mc.coarse_multiplier
-            f_fused = self._fused_frame_bucket(tokens.shape[0], speed)
-            if fused is None:
-                fused = f_fused is not None
-            if fused and f_fused is None:
-                raise ValueError(
-                    "fused path needs duration_stats in the package metadata")
+        with self._line():
+            with span("speak.prep"):
+                texts, lengths = self._texts([tokens])
+                L = texts.shape[1]
+                hop = self.mc.hop_length * self.mc.coarse_multiplier
+                f_fused = self._fused_frame_bucket(tokens.shape[0], speed)
+                if fused is None:
+                    fused = f_fused is not None
+                if fused and f_fused is None:
+                    raise ValueError(
+                        "fused path needs duration_stats in the package metadata")
+                if fused:
+                    inputs = (texts, lengths, self._tensor(duration_style)[None],
+                              self._tensor(pe_style)[None], self._tensor(speech_style)[None],
+                              self._tensor(1.0 / speed))
+                else:
+                    inputs = (texts, lengths, self._tensor(duration_style)[None])
             if fused:
-                inputs = (texts, lengths, self._tensor(duration_style)[None],
-                          self._tensor(pe_style)[None], self._tensor(speech_style)[None],
-                          self._tensor(1.0 / speed))
-            else:
-                inputs = (texts, lengths, self._tensor(duration_style)[None])
-        if fused:
-            audio, totals = self._fused_fn(L, f_fused, 1, inputs)(*inputs)
-            with span("speak.fetch"):
-                return audio[0, :int(totals[0]) * hop].cpu().numpy()
+                audio, totals = self._fused_fn(L, f_fused, 1, inputs)(*inputs)
+                with span("speak.fetch"):
+                    return audio[0, :int(totals[0]) * hop].cpu().numpy()
 
-        durations = self._duration_fn(L, 1, inputs)(*inputs)
-        with span("speak.fetch"):
-            durations = durations.cpu().numpy() / speed
-        with span("speak.prep"):
-            total = int(round(float(durations.sum())))
-            inputs = (texts, lengths, self._tensor(durations), self._tensor(pe_style)[None],
-                      self._tensor(speech_style)[None])
-        audio = self._acoustic_fn(L, frame_bucket(total), 1, inputs)(*inputs)
-        with span("speak.fetch"):
-            return audio[0, :total * hop].cpu().numpy()
+            durations = self._duration_fn(L, 1, inputs)(*inputs)
+            with span("speak.fetch"):
+                durations = durations.cpu().numpy() / speed
+            with span("speak.prep"):
+                total = int(round(float(durations.sum())))
+                inputs = (texts, lengths, self._tensor(durations), self._tensor(pe_style)[None],
+                          self._tensor(speech_style)[None])
+            audio = self._acoustic_fn(L, frame_bucket(total), 1, inputs)(*inputs)
+            with span("speak.fetch"):
+                return audio[0, :total * hop].cpu().numpy()
 
     def generate_speech_batch(self, token_lists, speech_styles, pe_styles,
                               duration_styles, speed: float = 1.0):

@@ -13,7 +13,7 @@ runs the function eagerly on its static inputs.
 
 Nothing falls back: a capture or a replay that fails on the card raises.
 
-**Sharing one memory pool.** Every program of an ``InferencePackage`` is
+**Sharing one memory pool.** Every program of a ``BucketPackage`` is
 captured into one pool (``torch.cuda.graph_pool_handle()``), or the full
 grid of programs would not fit beside each other. A shared pool is sound
 in any order of replay because of two rules that this module keeps:
@@ -35,11 +35,36 @@ only.
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Dict, Sequence
 
+import numpy as np
 import torch
 
-from ..utils.trace import span
+from ..utils.device import resolve_device
+from ..utils.trace import counter, span
+
+# programs built, by phase: a build inside a run means no warmup covered it
+BUILT = counter("programs.built", ("fused", "duration", "acoustic"))
+
+TEXT_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512)
+FRAME_BUCKET_STEP = 100
+SOURCE_SEED = 0  # of the generators that draw a program's source noise
+
+
+def frame_bucket(total_frames: int) -> int:
+    return max(
+        ((total_frames + FRAME_BUCKET_STEP - 1) // FRAME_BUCKET_STEP)
+        * FRAME_BUCKET_STEP,
+        FRAME_BUCKET_STEP,
+    )
+
+
+def text_bucket(n: int) -> int:
+    for b in TEXT_BUCKETS:
+        if n <= b:
+            return b
+    raise ValueError(f"text too long for inference buckets: {n}")
+
 
 # eager runs on a side stream before the capture: the first call of a
 # shape builds cuDNN's plans and the port's cached tensors (DFT bases,
@@ -102,3 +127,59 @@ class BucketProgram:
                 return self.fn(*self.inputs)
             self.graph.replay()
             return _clone(self.outputs)
+
+
+class BucketPackage:
+    """What the packages of both model families share: the device, the one
+    graph pool, the programs per bucket (``_duration_fns[L]`` and
+    ``_acoustic_fns[(L, F)]``, each mapping the batch size to its program)
+    and the line count of the ``speak.line`` spans.
+
+    A family's class answers ``speak``'s two questions: ``load_voice`` and
+    ``speak_line``."""
+
+    # what ``speak`` reports at its end, "label: key n, ..." per counter
+    SPEAK_COUNTERS = (("programs built while speaking", BUILT),)
+
+    def __init__(self, device: str):
+        self.device = resolve_device(device)
+        self._duration_fns: Dict[int, Dict[int, BucketProgram]] = {}
+        self._acoustic_fns: Dict[tuple, Dict[int, BucketProgram]] = {}
+        self._pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
+                      else None)
+        self._lines = 0
+
+    def load_voice(self, path: str):
+        """The voice file at ``path``, as ``speak_line`` takes it."""
+        raise NotImplementedError
+
+    def speak_line(self, text: str, voice, speed: float = 1.0) -> np.ndarray:
+        """A line of phoneme text in ``voice`` -> its waveform, float32."""
+        raise NotImplementedError
+
+    def _line(self):
+        """The span ``speak.line`` of the next ``generate_speech`` call."""
+        self._lines += 1
+        return span("speak.line", self._lines)
+
+    def _program(self, phase: str, cache: dict, key, batch: int, fn,
+                 example_inputs) -> BucketProgram:
+        """The cached program, built on a miss with static inputs cloned from
+        ``example_inputs`` (a request's own tensors keep their strides, and
+        with them the kernels the eager call on them would run)."""
+        entry = cache.setdefault(key, {})
+        if batch not in entry:
+            entry[batch] = BucketProgram(fn, example_inputs, pool=self._pool)
+            BUILT[phase] += 1
+        return entry[batch]
+
+    def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
+        return torch.as_tensor(np.array(x), dtype=dtype, device=self.device)
+
+    def _texts(self, token_lists):
+        lens = np.asarray([t.shape[0] for t in token_lists], np.int32)
+        L = text_bucket(int(lens.max()))
+        texts = np.zeros((len(token_lists), L), np.int32)
+        for i, t in enumerate(token_lists):
+            texts[i, :t.shape[0]] = t
+        return self._tensor(texts, torch.long), self._tensor(lens, torch.long)

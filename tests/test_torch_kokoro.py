@@ -12,18 +12,24 @@ package exports, reloads and speaks the same samples, in process and
 through ``speak``.
 """
 
+import ast
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 from click.testing import CliRunner
 from safetensors.torch import save_file
 
+from stylish_tts_torch import cli
 from stylish_tts_torch.cli import tts_cli
 from stylish_tts_torch.config import KokoroConfig, ModelConfig
 from stylish_tts_torch.data.wav import read_wav
-from stylish_tts_torch.export import KokoroPackage, open_package
+from stylish_tts_torch.export import (
+    InferencePackage, KokoroPackage, export_checkpoint, kokoro, open_package, package, programs,
+)
 from stylish_tts_torch.export.kokoro import FRAMES, load_voice, voice_row
-from stylish_tts_torch.export.package import BUILT, export_checkpoint
+from stylish_tts_torch.export.programs import BUILT, BucketPackage
 from stylish_tts_torch.models import build_models
 from stylish_tts_torch.models import kokoro as K
 from stylish_tts_torch.tts.loudness import normalize_loudness
@@ -315,6 +321,38 @@ def test_speak_with_a_kokoro_package(tmp_path):
                                        24000))
     wav = read_wav(str(tmp_path / "o.wav"), 24000)
     assert wav.shape[0] == sum(w.shape[0] for w in want)
+
+
+def imports_of(module) -> set:
+    """The modules that ``module``'s source imports, resolved to full names."""
+    base = module.__name__.rsplit(".", 1)[0]
+    names = set()
+    for node in ast.walk(ast.parse(Path(module.__file__).read_text(encoding="utf-8"))):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            parent = base.rsplit(".", node.level - 1)[0] if node.level else ""
+            full = ".".join(p for p in (parent, node.module) if p)
+            names.add(full)
+            names.update(f"{full}.{alias.name}" for alias in node.names)
+    return names
+
+
+def test_the_two_families_stand_on_one_bucket_package_base():
+    """Both package classes derive from ``programs.BucketPackage`` and not
+    from each other; the Kokoro module needs nothing of the Stylish one;
+    ``speak`` names no family; the bucket rules, the seed and the programs'
+    counter are defined once and still read from ``export.package``."""
+    for cls in (InferencePackage, KokoroPackage):
+        assert cls.__bases__ == (BucketPackage,)
+    assert not issubclass(KokoroPackage, InferencePackage)
+    assert not issubclass(InferencePackage, KokoroPackage)
+    assert "stylish_tts_torch.export.package" not in imports_of(kokoro)
+    assert "KokoroPackage" not in Path(cli.__file__).read_text(encoding="utf-8")
+    for name in ("TEXT_BUCKETS", "FRAME_BUCKET_STEP", "SOURCE_SEED", "BUILT",
+                 "text_bucket", "frame_bucket"):
+        assert getattr(package, name) is getattr(programs, name)
+        assert not hasattr(kokoro, name) or getattr(kokoro, name) is getattr(programs, name)
 
 
 def test_kokoro_voice_files_load_as_rows_of_the_pack(tmp_path):

@@ -35,9 +35,9 @@ from stylish_tts_tpu.export.package import export_checkpoint as jax_export
 from stylish_tts_tpu.models import build_model
 from stylish_tts_tpu.trainer.normalization import NormalizationStats as JaxNorm
 from stylish_tts_torch.export.package import (
-    InferencePackage, duration_stats_from_cache, export_checkpoint, frame_bucket,
-    text_bucket,
+    InferencePackage, duration_stats_from_cache, export_checkpoint,
 )
+from stylish_tts_torch.export.programs import frame_bucket, text_bucket
 from stylish_tts_torch.models import build_models
 from stylish_tts_torch.trainer.normalization import NormalizationStats
 from test_torch_synth_common import jax_params, port_config, randn, tiny_jax_config

@@ -62,10 +62,9 @@ from stylish_tts_tpu.export import package as jax_package_module
 from stylish_tts_tpu.export.package import InferencePackage as JaxPackage
 from stylish_tts_torch.export import package as package_module
 from stylish_tts_torch.export.package import (
-    TEXT_BUCKETS, InferencePackage, export_checkpoint, exported_program_path,
-    frame_bucket, warmup_grid,
+    InferencePackage, export_checkpoint, exported_program_path, warmup_grid,
 )
-from stylish_tts_torch.export.programs import BucketProgram
+from stylish_tts_torch.export.programs import TEXT_BUCKETS, BucketProgram, frame_bucket
 from stylish_tts_torch.models import build_models
 from stylish_tts_torch.models import generator as generator_module
 from stylish_tts_torch.models.generator import SourceDraws

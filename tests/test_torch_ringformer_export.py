@@ -52,9 +52,8 @@ from stylish_tts_tpu.tts import voicepack as jvoicepack
 from stylish_tts_torch.cli import train_cli, tts_cli
 from stylish_tts_torch.convert.from_jax import flatten, module_from_jax
 from stylish_tts_torch.data.wav import read_wav
-from stylish_tts_torch.export.package import (
-    InferencePackage, export_checkpoint, frame_bucket,
-)
+from stylish_tts_torch.export.package import InferencePackage, export_checkpoint
+from stylish_tts_torch.export.programs import frame_bucket
 from stylish_tts_torch.models import INFERENCE_MODULES, build_models
 from stylish_tts_torch.trainer.checkpoint import checkpoint_dir_name
 from stylish_tts_torch.trainer.normalization import NormalizationStats

@@ -22,7 +22,8 @@ from stylish_tts_tpu.tts import voicepack as jvoicepack
 from stylish_tts_torch import native
 from stylish_tts_torch.cli import tts_cli
 from stylish_tts_torch.data.wav import read_wav
-from stylish_tts_torch.export.package import export_checkpoint, frame_bucket
+from stylish_tts_torch.export.package import export_checkpoint
+from stylish_tts_torch.export.programs import frame_bucket
 from stylish_tts_torch.models import build_models
 from stylish_tts_torch.textproc import embed
 from stylish_tts_torch.trainer.normalization import NormalizationStats

@@ -41,7 +41,8 @@ from stylish_tts_torch.data import loader as loader_mod
 from stylish_tts_torch.data.dataset import FilePathDataset
 from stylish_tts_torch.data.sampler import BatchSizeTable, DynamicBatchSampler
 from stylish_tts_torch import losses
-from stylish_tts_torch.export.package import BUILT, InferencePackage, export_checkpoint
+from stylish_tts_torch.export.package import InferencePackage, export_checkpoint
+from stylish_tts_torch.export.programs import BUILT
 from stylish_tts_torch.models import build_models, slm
 from stylish_tts_torch.ops import ctc_cuda
 from stylish_tts_torch.text import TextCleaner
