@@ -96,7 +96,7 @@ from ..models.models import STAGE_DISCRIMINATORS, STAGE_TRAIN_MODELS
 from ..ops import ctc as ctc_ops
 from ..ops.ctc_cuda import ctc_loss_with_priors_cuda
 from ..ops.duration import DurationProcessor
-from ..utils.trace import span
+from ..utils.trace import counter, span
 from .optim import (
     DISC_SUB_COUNT,
     apply_module_update,
@@ -107,6 +107,15 @@ from .optim import (
 from .state import StageTrainState, TrainState
 
 PRIOR_SCALE = 0.3
+
+# cuDNN engines timed for each convolution of the acoustic discriminators
+# (``_tune_discriminators``). At the acoustic cell's shapes on an H100, 3
+# take 3.0 s of timing for 268 ms of those convolutions a step; cuDNN's
+# default, 10, takes 19.9 s for 244 ms; the heuristic's plans take 484 ms.
+TUNE_ENGINES = 3
+
+# acoustic steps by whether their discriminators ran on tuned cuDNN plans
+AUTOTUNE = counter("disc.conv_autotune", ("on", "off"))
 
 
 def _traced(step):
@@ -351,6 +360,41 @@ def _update_discriminators(state: StageTrainState, stage: str, total, raws, step
     return lr_mults
 
 
+def _tune_discriminators(ctx, models, specs, audio) -> None:
+    """Have cuDNN time its engines for every convolution of the three MRDs
+    and the waveform disc at these input shapes (forward, input gradient,
+    weight gradient), by running each once on zeros under its autotuner.
+    cuDNN keeps one plan per convolution, chosen at its first call whatever
+    the autotuner flag is later, so the step's own calls then run the
+    fastest engines timed, where cuDNN's heuristic picks legacy float32
+    engines and layout transposes. The other convolutions of the step keep
+    the heuristic's plans: timing theirs costs more set-up than it saves.
+    Each module's ``forward`` is called directly, so that forward hooks that
+    observe the discriminators' calls see only the step's own. Parameters,
+    gradients and the cuDNN flags are left as they were."""
+    flags = torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit = True, TUNE_ENGINES
+    try:
+        with ctx.disc_autocast(audio.device):
+            for name, x in (*((f"mrd{i}", spec) for i, spec in enumerate(specs)),
+                            ("disc", audio)):
+                module = models[name]
+                frozen = [p for p in module.parameters() if not p.requires_grad]
+                module.requires_grad_(True)
+                x = torch.zeros_like(x, requires_grad=True)
+                scores = module.forward(x)
+                torch.autograd.grad(sum(s.sum() for s in scores), [x, *module.parameters()])
+                for p in frozen:
+                    p.requires_grad_(False)
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.benchmark_limit = flags
+
+
+def _on_cudnn(x: torch.Tensor) -> bool:
+    """Whether cuDNN runs the convolutions of ``x``: it is on the card."""
+    return x.is_cuda
+
+
 def _disc_phase_mrd(ctx, state: StageTrainState, feats_t_fft, pred_fft_detached,
                     audio_t, audio_p_detached, disc_index: int, lr: float,
                     sqrt_b: float):
@@ -406,7 +450,10 @@ def make_acoustic_step(ctx: StepContext):
     """(state, batch on the state's device) -> metrics; updates ``state``
     in place. Metrics: device scalars ``mel``, ``multi_phase``,
     ``generator``, ``mag`` and ``phase`` (ringformer), ``slm`` (when on) and
-    ``discriminator``; floats ``lr`` and ``<disc>_lr_mult``."""
+    ``discriminator``; floats ``lr`` and ``<disc>_lr_mult``. On the card
+    the discriminators' convolutions run on cuDNN plans tuned at each new
+    input shape (``_tune_discriminators``)."""
+    tuned = set()  # the audio shapes the discriminators' plans were tuned at
 
     def step(state: StageTrainState, batch: Batch):
         models = state.models
@@ -417,6 +464,11 @@ def make_acoustic_step(ctx: StepContext):
             with torch.no_grad():
                 audio_t = batch.audio_gt[:, : frames * ctx.mc.hop_length].to(torch.float32)
                 feats_t = ctx.multi_spec(audio_t)
+        on = _on_cudnn(audio_t)
+        if on and audio_t.shape not in tuned:  # the spectrograms' shapes follow from it
+            _tune_discriminators(ctx, models, feats_t.fft_mag, audio_t)
+            tuned.add(audio_t.shape)
+        AUTOTUNE["on" if on else "off"] += 1
         if ctx.forced_disc_index is not None:
             disc_index = int(ctx.forced_disc_index)
         else:

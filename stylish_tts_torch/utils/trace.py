@@ -21,7 +21,9 @@ a ``collections.Counter`` bumped with a plain add, always on: the loader's
 batches by audio path (``loader.batches``), the CTC kernels' launches
 (``ctc.launches``), the synthesis programs built per phase
 (``programs.built``), the loudness step's calls by filter path
-(``loudness.path``: ``native`` or ``scipy``).
+(``loudness.path``: ``native`` or ``scipy``), the acoustic steps by whether
+their discriminators ran on tuned cuDNN plans (``disc.conv_autotune``:
+``on`` or ``off``).
 
 Never open a span inside a phase function that a CUDA graph captures: it
 would run at the capture only, never at a replay.
