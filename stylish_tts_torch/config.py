@@ -335,6 +335,83 @@ class KokoroConfig(BaseModel):
         return 2 * math.prod(ist.upsample_rates) * ist.gen_istft_hop_size
 
 
+class F5ArchConfig(BaseModel):
+    """The DiT of ``F5TTS_v1_Base.yaml``'s ``arch`` (``dim_head``, the text
+    blocks' ``conv_mult``, the position convolution and the time and text
+    position tables are the constructors' defaults in ``dit.py`` and
+    ``modules.py``)."""
+
+    dim: int = 1024
+    depth: int = 22
+    heads: int = 16
+    dim_head: int = 64
+    ff_mult: int = 2
+    text_dim: int = 512
+    conv_layers: int = 4
+    conv_mult: int = 2
+    pos_kernel: int = 31
+    pos_groups: int = 16
+    freq_embed_dim: int = 256
+    text_max_pos: int = 4096
+
+
+class F5MelConfig(BaseModel):
+    """``mel_spec`` of the published yaml: Vocos's magnitude mel."""
+
+    target_sample_rate: int = 24000
+    n_mel_channels: int = 100
+    hop_length: int = 256
+    win_length: int = 1024
+    n_fft: int = 1024
+    mel_spec_type: Literal["vocos"] = "vocos"
+
+
+class VocosConfig(BaseModel):
+    """``charactr/vocos-mel-24khz``'s backbone and iSTFT head."""
+
+    input_channels: int = 100
+    dim: int = 512
+    intermediate_dim: int = 1536
+    num_layers: int = 8
+    n_fft: int = 1024
+    hop_length: int = 256
+    padding: Literal["same"] = "same"
+
+
+class F5SamplerConfig(BaseModel):
+    """``infer_process``'s defaults: 32 Euler steps with classifier-free
+    guidance and sway sampling, chunks of reference plus generated audio
+    near ``max_seconds``."""
+
+    nfe_step: int = 32
+    cfg_strength: float = 2.0
+    sway_sampling_coef: float = -1.0
+    speed: float = 1.0
+    max_seconds: float = 22.0
+
+
+class F5Config(BaseModel):
+    """F5-TTS v1 Base (github.com/SWivid/F5-TTS ``F5TTS_v1_Base.yaml``) with
+    the Vocos vocoder. ``vocab`` maps a character to its id (empty until the
+    published ``vocab.txt`` is given; ``speak`` needs it, the benchmark
+    feeds ids); ``vocab_size`` sizes the text embedding. ``dit_dtype`` is
+    the DiT's and the text embedding's precision on a card (F5-TTS casts
+    the model to float16 there); Vocos and the mel run in float32."""
+
+    family: Literal["f5"] = "f5"
+    arch: F5ArchConfig = F5ArchConfig()
+    mel_spec: F5MelConfig = F5MelConfig()
+    vocos: VocosConfig = VocosConfig()
+    sampler: F5SamplerConfig = F5SamplerConfig()
+    vocab_size: int = 2545
+    vocab: Dict[str, int] = {}
+    dit_dtype: Literal["float16", "bfloat16", "float32"] = "float16"
+
+    @property
+    def sample_rate(self) -> int:
+        return self.mel_spec.target_sample_rate
+
+
 # --------------------------------------------------------------------------
 # Loading helpers
 # --------------------------------------------------------------------------

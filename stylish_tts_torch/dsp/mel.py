@@ -1,8 +1,8 @@
 """Mel spectrograms (HTK scale, torchaudio-compatible).
 
 Counterpart of ``stylish_tts_tpu/dsp/mel.py``: the same HTK filterbank
-(``norm=None``) over the port's framed-DFT ``stft``; power 2.0, centre
-reflect padding.
+(``norm=None``) over the port's framed-DFT ``stft``; power 2.0 (or 1.0, the
+magnitude), centre reflect padding.
 """
 
 from __future__ import annotations
@@ -50,7 +50,11 @@ def mel_filterbank(
 
 
 class MelSpectrogram:
-    """Callable audio (B, T) -> mel power spectrogram (B, n_mels, frames)."""
+    """Callable audio (B, T) -> mel power spectrogram (B, n_mels, frames).
+
+    ``power`` 1 gives the mel of the magnitude instead (Vocos's and
+    F5-TTS's); ``log_floor``, where given, returns ``log(max(mel,
+    log_floor))``."""
 
     def __init__(
         self,
@@ -60,12 +64,18 @@ class MelSpectrogram:
         win_length: int,
         hop_length: int,
         sample_rate: int,
+        power: float = 2.0,
+        log_floor: float | None = None,
     ):
+        if power not in (1.0, 2.0):
+            raise ValueError(f"power is 1 or 2, not {power!r}")
         self.n_mels = n_mels
         self.n_fft = n_fft
         self.win_length = win_length
         self.hop_length = hop_length
         self.sample_rate = sample_rate
+        self.power = power
+        self.log_floor = log_floor
         self._fb = torch.from_numpy(mel_filterbank(n_mels, n_fft, sample_rate))
         self._fb_on = {}  # device -> filterbank copy
 
@@ -73,9 +83,14 @@ class MelSpectrogram:
     def __call__(self, audio: torch.Tensor) -> torch.Tensor:
         real, imag = stft(audio, self.n_fft, self.hop_length, self.win_length)
         power_spec = real * real + imag * imag
+        if self.power == 1.0:
+            power_spec = torch.sqrt(power_spec)
         device = power_spec.device
         if device not in self._fb_on:
             self._fb_on[device] = self._fb.to(device)
         fb = self._fb_on[device]  # (freq, mel)
         # (B, freq, frames) x (freq, mel) -> (B, mel, frames)
-        return torch.einsum("bft,fm->bmt", power_spec, fb)
+        mel = torch.einsum("bft,fm->bmt", power_spec, fb)
+        if self.log_floor is not None:
+            mel = torch.log(torch.clamp_min(mel, self.log_floor))
+        return mel

@@ -166,20 +166,38 @@ def stft_magnitude_unit_phase(audio: torch.Tensor, n_fft: int, hop_length: int,
 @fp32_island
 def istft(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop_length: int,
           win_length: int, center: bool = True, length: int | None = None,
-          normalize_window: bool = True, uniform_scale: bool = False) -> torch.Tensor:
+          normalize_window: bool = True, uniform_scale: bool = False,
+          padding: str = "center", frame_mask: torch.Tensor | None = None) -> torch.Tensor:
     """real/imag (B, freq_bins, frames) -> (B, T): one matmul synthesises the
     frames, then overlap-add; ``normalize_window`` divides by the window's
-    sum-of-squares envelope (as ``torch.istft``)."""
+    sum-of-squares envelope (as ``torch.istft``).
+
+    With ``center``, ``padding`` "center" trims ``n_fft // 2`` samples at
+    each end (``torch.istft``'s), "same" trims ``(win_length - hop_length)
+    // 2`` (Vocos's iSTFT head: ``frames * hop_length`` samples are left).
+    ``frame_mask`` (B, frames), 1 on the frames that exist and 0 on a
+    bucket's padding: the padding frames are neither synthesised nor
+    counted in the envelope, so the existing frames' samples are those of
+    an iSTFT of them alone."""
     spec = torch.cat([real.to(torch.float32), imag.to(torch.float32)], dim=1)
     basis = inverse_basis(n_fft, win_length, uniform_scale, spec.device)
-    wav = overlap_add(torch.matmul(spec.transpose(1, 2), basis), hop_length)
+    frames = torch.matmul(spec.transpose(1, 2), basis)
+    if frame_mask is not None:
+        frame_mask = frame_mask.to(torch.float32)[:, :, None]
+        frames = frames * frame_mask
+    wav = overlap_add(frames, hop_length)
     if normalize_window:
         n_frames = real.shape[-1]
         wss = window_square(win_length, n_fft, spec.device)
-        envelope = overlap_add(wss.expand(1, n_frames, n_fft), hop_length)
+        if frame_mask is None:
+            envelope = overlap_add(wss.expand(1, n_frames, n_fft), hop_length)
+        else:
+            envelope = overlap_add(frame_mask * wss, hop_length)
         wav = wav / torch.clamp_min(envelope, 1e-11)
     if center:
-        pad = n_fft // 2
+        if padding not in ("center", "same"):
+            raise ValueError(f"padding is 'center' or 'same', not {padding!r}")
+        pad = n_fft // 2 if padding == "center" else (win_length - hop_length) // 2
         wav = wav[:, pad:-pad]
     if length is not None:
         if wav.shape[-1] < length:

@@ -23,8 +23,9 @@ generator seeded 0.
 Spans (``utils/trace.py``): ``speak.line`` around a call, with
 ``speak.prep``, ``speak.durations`` (from the duration program's replay to
 the durations on the host; it holds that ``speak.fetch``) and the final
-``speak.fetch`` inside. The counter ``speak.frames`` adds each line's
-frames (``real``) and its frame bucket's (``bucket``).
+``speak.fetch`` inside. The counter ``speak.frames``
+(``programs.FRAMES``) adds each line's frames (``real``) and its frame
+bucket's (``bucket``).
 """
 
 from __future__ import annotations
@@ -41,11 +42,8 @@ from torch import nn
 
 from ..config import KokoroConfig
 from ..models import kokoro as K
-from ..utils.trace import counter, span
-from .programs import SOURCE_SEED, BucketPackage, frame_bucket
-
-# frames a line needs and frames its acoustic program computed
-FRAMES = counter("speak.frames", ("real", "bucket"))
+from ..utils.trace import span
+from .programs import FRAMES, SOURCE_SEED, BucketPackage, frame_bucket
 
 
 def export_kokoro(models: Mapping[str, nn.Module], config: KokoroConfig, out_dir: str) -> str:
@@ -172,8 +170,7 @@ class KokoroPackage(BucketPackage):
             with span("speak.prep"):
                 total = int(host.sum())
                 F = frame_bucket(total)
-                FRAMES["real"] += total
-                FRAMES["bucket"] += F
+                self._count_frames(total, F)
             self.last_durations = host[:tokens.shape[0]].astype(np.int64)
             audio = self._acoustic_fn(L, F, inputs)(*inputs)
             with span("speak.fetch"):

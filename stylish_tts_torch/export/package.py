@@ -55,7 +55,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import KokoroConfig, ModelConfig
+from ..config import F5Config, KokoroConfig, ModelConfig
 from ..convert.from_jax import module_from_jax, module_to_jax_flat
 from ..models import INFERENCE_MODULES, build_inference_models
 from ..models.generator import SourceDraws
@@ -182,6 +182,10 @@ def export_checkpoint(
     normalisation and statistics do not apply)."""
     if isinstance(model_config, KokoroConfig):
         return export_kokoro(models, model_config, out_dir)
+    if isinstance(model_config, F5Config):
+        from .f5 import export_f5
+
+        return export_f5(models, model_config, out_dir)
     os.makedirs(out_dir, exist_ok=True)
     flat = {}
     for name in INFERENCE_MODULES:

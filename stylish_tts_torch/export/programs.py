@@ -45,6 +45,9 @@ from ..utils.trace import counter, span
 
 # programs built, by phase: a build inside a run means no warmup covered it
 BUILT = counter("programs.built", ("fused", "duration", "acoustic"))
+# frames a line needs and frames its frame bucket's program computed (the
+# two-phase families, whose host knows a line's frames before its program)
+FRAMES = counter("speak.frames", ("real", "bucket"))
 
 TEXT_BUCKETS = (32, 64, 96, 128, 192, 256, 384, 512)
 FRAME_BUCKET_STEP = 100
@@ -130,14 +133,17 @@ class BucketProgram:
 
 
 class BucketPackage:
-    """What the packages of both model families share: the device, the one
+    """What the packages of every model family share: the device, the one
     graph pool, the programs per bucket (``_duration_fns[L]`` and
-    ``_acoustic_fns[(L, F)]``, each mapping the batch size to its program)
-    and the line count of the ``speak.line`` spans.
+    ``_acoustic_fns[(L, F)]``, each mapping the batch size to its program;
+    a family may keep further caches of its own phases), the line count of
+    the ``speak.line`` spans and the ``speak.frames`` count.
 
     A family's class answers ``speak``'s two questions: ``load_voice`` and
     ``speak_line``."""
 
+    # the counter of programs built, by phase, that ``_program`` adds to
+    BUILT = BUILT
     # what ``speak`` reports at its end, "label: key n, ..." per counter
     SPEAK_COUNTERS = (("programs built while speaking", BUILT),)
 
@@ -170,8 +176,13 @@ class BucketPackage:
         entry = cache.setdefault(key, {})
         if batch not in entry:
             entry[batch] = BucketProgram(fn, example_inputs, pool=self._pool)
-            BUILT[phase] += 1
+            self.BUILT[phase] += 1
         return entry[batch]
+
+    @staticmethod
+    def _count_frames(real: int, bucket: int) -> None:
+        FRAMES["real"] += real
+        FRAMES["bucket"] += bucket
 
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(np.array(x), dtype=dtype, device=self.device)

@@ -21,7 +21,7 @@ from typing import Dict
 
 from torch import nn
 
-from ..config import KokoroConfig, ModelConfig
+from ..config import F5Config, KokoroConfig, ModelConfig
 from .discriminators import ContextFreeDiscriminator, PitchDiscriminator, SpecDiscriminator
 from .duration_predictor import DurationPredictor
 from .kokoro import build_kokoro_models
@@ -77,9 +77,14 @@ def build_inference_models(model_config: ModelConfig) -> Dict[str, nn.Module]:
 def build_models(model_config: ModelConfig) -> Dict[str, nn.Module]:
     """Every module of ``build_model`` but the aligner, with its
     ``norm_mode``, ``sn`` and ``generator.remat`` rules. Kokoro (a
-    ``KokoroConfig``) has inference modules only."""
+    ``KokoroConfig``) and F5-TTS (an ``F5Config``) have inference modules
+    only."""
     if isinstance(model_config, KokoroConfig):
         return build_kokoro_models(model_config)
+    if isinstance(model_config, F5Config):
+        from .f5 import build_f5_models
+
+        return build_f5_models(model_config)
     mc = model_config
     se = mc.style_encoder
     sn = not mc.imported_weights

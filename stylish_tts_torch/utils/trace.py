@@ -20,10 +20,12 @@ Counters are named groups of integers in one registry (``COUNTERS``), each
 a ``collections.Counter`` bumped with a plain add, always on: the loader's
 batches by audio path (``loader.batches``), the CTC kernels' launches
 (``ctc.launches``), the synthesis programs built per phase
-(``programs.built``), the loudness step's calls by filter path
-(``loudness.path``: ``native`` or ``scipy``), the acoustic steps by whether
-their discriminators ran on tuned cuDNN plans (``disc.conv_autotune``:
-``on`` or ``off``).
+(``programs.built``; F5-TTS's in ``programs.built.f5``), a two-phase
+line's frames and its frame bucket's (``speak.frames``), F5-TTS's DiT
+evaluations per guidance row (``speak.nfe``: ``cond``, ``uncond``), the
+loudness step's calls by filter path (``loudness.path``: ``native`` or
+``scipy``), the acoustic steps by whether their discriminators ran on
+tuned cuDNN plans (``disc.conv_autotune``: ``on`` or ``off``).
 
 Never open a span inside a phase function that a CUDA graph captures: it
 would run at the capture only, never at a replay.
